@@ -1,0 +1,23 @@
+"""Dispatch over the hand-written kernels, in model layout.
+
+A tensor on the card goes to the kernel; a tensor on the CPU goes to the
+kernel's plain version in ``ref``.  Nothing is padded: the kernel masks a
+ragged sequence length itself.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Model layout q:(B,S,Hq,Dh), k/v:(B,S,Hkv,Dh) -> (B,S,Hq,Dh)."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if q.device.type == "cpu":
+        out = ref.flash_attention_ref(qt, kt, vt, causal, window)
+    else:
+        out = _fa.flash_attention(qt, kt, vt, causal=causal, window=window)
+    return out.transpose(1, 2)

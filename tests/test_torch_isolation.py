@@ -1,0 +1,64 @@
+"""The port stands alone: no ``jax`` and no ``repro`` import, anywhere in
+``src/repro_torch``, ``chip_smoke.py`` or ``chip_mutants.py``, and it
+serves with both
+blocked."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and not node.level:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_no_jax_or_repro_imports():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files += [REPO / "chip_smoke.py", REPO / "chip_mutants.py"]
+    assert len(files) > 10
+    bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
+           for f in files for line, root in _imported_roots(f)
+           if root in FORBIDDEN]
+    assert not bad, bad
+
+
+SERVE_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+from repro_torch.configs import get_config
+from repro_torch.kernels import build, flash_attention, ops, ref
+from repro_torch.launch import serve
+from repro_torch.models import convert
+from repro_torch.models.model import init_params
+from repro_torch.serve.serve_step import Request, ServingEngine
+cfg = get_config("llama3.2-1b").reduced(n_layers=1, max_d_model=128)
+model = init_params(cfg, seed=0, device="cpu")
+eng = ServingEngine(cfg, model, slots=1, max_seq=8, device="cpu")
+(r,) = eng.run([Request(0, np.arange(3), 2)])
+assert len(r.out) == 2
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("served", r.out.tolist())
+"""
+
+
+def test_serves_with_jax_and_repro_blocked():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    res = subprocess.run([sys.executable, "-c", SERVE_WITHOUT_JAX],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "served" in res.stdout
