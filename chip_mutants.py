@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
-"""Mutation check of the bf16 flash-attention kernel's gate, on one card.
+"""Mutation check of the kernel gates of ``chip_smoke.py``, on one card.
 
     python3 chip_mutants.py [--out FILE.json]
 
-Plants one fault at a time in a copy of
-``src/repro_torch/kernels/csrc/flash_attention.cu`` (its bf16 kernel only),
-built in a temporary directory, and runs every bfloat16 case of
-``chip_smoke.py``'s kernel phase through it with ``chip_smoke.gate``.  The
-unchanged source runs first as the control.  A fault is caught when at least
-one case exceeds the limit.  Exits non-zero if the control fails or a fault
-is not caught.  The repository's own kernel build is not touched.
+Plants one fault at a time in a copy of a kernel source from
+``src/repro_torch/kernels/csrc/``, builds every copy in a temporary
+directory (one ``nvcc`` each, all at once), and runs the smoke's kernel
+cases through each build with the smoke's own checks:
+
+- flash attention (K1): faults in its bf16 kernel only, run through every
+  bfloat16 case of the kernel phase and ``chip_smoke.gate``;
+- the WKV6 scan (K2): faults anywhere in the source, run through every K2
+  case of the kernel phase and ``chip_smoke.rwkv_check_case`` (output,
+  final state and chaining).
+
+The unchanged sources run first as the controls.  A fault is caught when
+at least one case exceeds its limit.  Exits non-zero if a control fails or
+a fault is not caught.  The repository's own kernel build is not touched.
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ from unittest import mock
 import chip_smoke
 
 # name -> (text in the bf16 kernel, its replacement, what the fault is)
-MUTANTS = {
+FA_MUTANTS = {
     "skip_last_tile": (
         "kt < kt_end; ++kt", "kt < kt_end - 1; ++kt",
         "the key-tile loop stops one tile early"),
@@ -49,19 +56,49 @@ MUTANTS = {
         "      acc[j][2] *= alpha[1];\n      acc[j][3] *= alpha[1];", "",
         "acc is not rescaled when the running max grows"),
 }
-BF16_MARK = "// bf16: tensor cores"
+_STEP = ("          acc[e] = fmaf(rr[e], st[i + e], acc[e]);  "
+         "// o_t reads S_{t-1}\n",
+         "          bon[e] += bb[e];\n",
+         "          st[i + e] = fmaf(ww[e], st[i + e], kk[e] * vj);  // S_t\n")
+# name -> (text in the WKV6 source, its replacement, what the fault is)
+RWKV_MUTANTS = {
+    "no_bonus": (_STEP[1], "", "the u-bonus term is dropped"),
+    "output_after_update": (
+        "".join(_STEP), _STEP[1] + _STEP[2] + _STEP[0],
+        "o_t reads S_t instead of S_{t-1}"),
+    "decay_after_add": (
+        "fmaf(ww[e], st[i + e], kk[e] * vj)",
+        "ww[e] * (st[i + e] + kk[e] * vj)",
+        "the decay is applied after the kv add"),
+    "w_as_bf16": (
+        "w_s[c * D + j] = to_f32(wb[t * ws.s + j]);",
+        "w_s[c * D + j] = __bfloat162float(__float2bfloat16("
+        "to_f32(wb[t * ws.s + j])));",
+        "w is rounded to bf16 on read"),
+    "s0_ignored": (
+        "st[i] = s0[sbase + i * D + j];", "st[i] = 0.f;",
+        "the initial state S_0 is ignored"),
+    "state_one_early": (
+        "st[i + e] = fmaf(ww[e], st[i + e], kk[e] * vj);",
+        "st[i + e] = t0 + c == S - 1 ? st[i + e] : "
+        "fmaf(ww[e], st[i + e], kk[e] * vj);",
+        "the final state is emitted one step early"),
+}
+# kernel -> its faults and the part of its source they go in (after the
+# marker, or all of it)
+KERNELS = {"flash_attention": (FA_MUTANTS, "// bf16: tensor cores"),
+           "rwkv6_scan": (RWKV_MUTANTS, None)}
 # the JAX package's bf16 kernel-test tolerance (tests/test_kernels.py), a
 # plain max abs error, reported beside the gate for comparison
 ABS_TOL = 5e-2
 
 
-def mutate(src: str, old: str, new: str) -> str:
-    """Replace ``old`` once in the bf16 part of the source."""
-    head, tail = src.split(BF16_MARK, 1)
+def mutate(src: str, old: str, new: str, mark) -> str:
+    """Replace ``old`` once in the part of the source after ``mark``."""
+    head, tail = src.split(mark, 1) if mark else ("", src)
     if tail.count(old) != 1:
-        raise RuntimeError(f"mutation site {old!r} is not unique in the "
-                           f"bf16 kernel")
-    return head + BF16_MARK + tail.replace(old, new)
+        raise RuntimeError(f"mutation site {old!r} is not unique")
+    return head + (mark or "") + tail.replace(old, new)
 
 
 def build(sources: dict, workdir: Path) -> dict:
@@ -86,20 +123,26 @@ def build(sources: dict, workdir: Path) -> dict:
     return out
 
 
-def run_cases(lib: Path) -> list:
-    """Every bf16 kernel-phase case through the library at ``lib``, on the
-    smoke's inputs (seed 0)."""
+def run_cases(kernel: str, lib: Path) -> list:
+    """The kernel's cases through the library at ``lib``, on the smoke's
+    inputs (seed 0): K1's bfloat16 cases, or every K2 case."""
     import torch
-    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention, rwkv6_scan
+    mod = {"flash_attention": flash_attention, "rwkv6_scan": rwkv6_scan}[
+        kernel]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
-    with mock.patch.object(fa, "_fn", fa.bind(ctypes.CDLL(str(lib)))):
-        for case in chip_smoke.kernel_cases():
-            if case[5] != "bfloat16":
-                continue
-            errs, _ = chip_smoke.check_case(case, gen)
-            rows.append({"case": list(case[:8]), **errs})
+    with mock.patch.object(mod, "_fn", mod.bind(ctypes.CDLL(str(lib)))):
+        if kernel == "flash_attention":
+            for case in chip_smoke.kernel_cases():
+                if case[5] == "bfloat16":
+                    errs, _ = chip_smoke.check_case(case, gen)
+                    rows.append({"case": list(case[:8]), **errs})
+        else:
+            for case in chip_smoke.rwkv_cases():
+                errs, _ = chip_smoke.rwkv_check_case(case, gen)
+                rows.append({"case": list(case[:6]), **errs})
     return rows
 
 
@@ -113,33 +156,42 @@ def main(argv=None) -> int:
         print("chip_mutants: CUDA is not available", file=sys.stderr)
         return 1
     from repro_torch.kernels import build as kbuild
-    src = (kbuild.CSRC / "flash_attention.cu").read_text()
-    sources = {"control": src}
-    sources.update({name: mutate(src, old, new)
-                    for name, (old, new, _) in MUTANTS.items()})
+    sources, what = {}, {}
+    for kernel, (mutants, mark) in KERNELS.items():
+        src = (kbuild.CSRC / f"{kernel}.cu").read_text()
+        sources[(kernel, "control")] = src
+        what[(kernel, "control")] = "unchanged"
+        for name, (old, new, desc) in mutants.items():
+            sources[(kernel, name)] = mutate(src, old, new, mark)
+            what[(kernel, name)] = desc
     report, bad = {}, []
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(sources, Path(tmp))
-        for name, lib in libs.items():
-            rows = run_cases(lib)
+        libs = build({f"{k}-{n}": text for (k, n), text in sources.items()},
+                     Path(tmp))
+        for (kernel, name) in sources:
+            rows = run_cases(kernel, libs[f"{kernel}-{name}"])
             failing = [r for r in rows if not r["ok"]]
-            report[name] = {
-                "what": MUTANTS[name][2] if name in MUTANTS else "unchanged",
-                "cases": len(rows), "cases_over_limit": len(failing),
-                "cases_over_abs_tol": sum(r["max_abs_err"] >= ABS_TOL
+            rep = {"what": what[(kernel, name)], "cases": len(rows),
+                   "cases_over_limit": len(failing),
+                   "cases_over_abs_tol": sum(r["max_abs_err"] >= ABS_TOL
+                                             for r in rows),
+                   "worst_rel_err": max(r["max_rel_err"] for r in rows),
+                   "worst_abs_err": max(r["max_abs_err"] for r in rows),
+                   "worst_state_err": max(r.get("state_abs_err", 0.0)
                                           for r in rows),
-                "worst_rel_err": max(r["max_rel_err"] for r in rows),
-                "worst_abs_err": max(r["max_abs_err"] for r in rows),
-                "rows": rows}
-            caught = bool(failing)
-            if caught != (name != "control"):
-                bad.append(name)
-            print(f"[mutant] {name:15s} over limit in {len(failing):2d} of "
-                  f"{len(rows)} cases (max abs >= {ABS_TOL}: "
-                  f"{report[name]['cases_over_abs_tol']:2d}); worst rel_err "
-                  f"{report[name]['worst_rel_err']:.4g}, abs_err "
-                  f"{report[name]['worst_abs_err']:.4g} "
-                  f"(limit rel {chip_smoke.BF16_REL_TOL})", flush=True)
+                   "worst_state_rel_err": max(r.get("state_rel_err", 0.0)
+                                              for r in rows),
+                   "caught_by": [r["case"] for r in failing], "rows": rows}
+            report.setdefault(kernel, {})[name] = rep
+            if bool(failing) != (name != "control"):
+                bad.append(f"{kernel}/{name}")
+            print(f"[mutant] {kernel:15s} {name:19s} over limit in "
+                  f"{len(failing):2d} of {len(rows)} cases (max abs >= "
+                  f"{ABS_TOL}: {rep['cases_over_abs_tol']:2d}); worst "
+                  f"rel_err {rep['worst_rel_err']:.4g}, abs_err "
+                  f"{rep['worst_abs_err']:.4g}, state_err "
+                  f"{rep['worst_state_err']:.4g} (rel "
+                  f"{rep['worst_state_rel_err']:.4g})", flush=True)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -149,7 +201,8 @@ def main(argv=None) -> int:
     if bad:
         print(f"chip_mutants: wrong verdict for {bad}", file=sys.stderr)
         return 1
-    print(json.dumps({"ok": True, "caught": sorted(MUTANTS)}))
+    print(json.dumps({"ok": True, "caught": {
+        kernel: sorted(mutants) for kernel, (mutants, _) in KERNELS.items()}}))
     return 0
 
 

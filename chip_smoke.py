@@ -4,32 +4,48 @@
     python3 chip_smoke.py [--seed N] [--out FILE.json]
 
 Builds every hand-written kernel from ``src/repro_torch/kernels/csrc`` and
-drives the port of the llama3.2-1b serving path at full width and depth
-with random weights from ``--seed``.  Three phases; any failure raises and
-the script exits non-zero:
+drives the port's two model paths at full width and depth with random
+weights from ``--seed``: llama3.2-1b (flash attention, K1) and rwkv6-7b
+(the WKV6 scan, K2).  Any failure raises and the script exits non-zero.
 
-1. kernel  -- the flash-attention kernel against its plain PyTorch version
-   (``kernels/ref.py``) on the card: the shape sweep of the JAX package's
-   kernel tests, the llama3.2-1b prefill shapes and ragged S=100 and
-   S=1000.  float32 is held to a max abs error of 2e-4; bfloat16 to a max
-   abs error over each (batch, head, 64-row block) of 3e-2 of that block's
-   largest output (``rowblock_rel_err``), so the limit follows the output's
-   size along the sequence.  Times the kernel, the plain version and
+1. kernel  -- each kernel against its plain PyTorch version
+   (``kernels/ref.py``) on the card.  float32 outputs are held to a max
+   abs error of 2e-4; bfloat16 outputs to a max abs error over each
+   (batch, head, 64-row block) of 3e-2 of that block's largest output
+   (``rowblock_rel_err``), so the limit follows the output's size along
+   the sequence.
+   K1: the shape sweep of the JAX package's kernel tests, the llama3.2-1b
+   prefill shapes and ragged S=100 and S=1000; timed beside
    ``scaled_dot_product_attention`` (a yardstick only; the port never
    calls it).
-2. prefill -- ``forward`` on 4 x 1024 tokens in bf16, once through the
-   kernel (``attn_impl="pallas"``) and once through the einsum path
-   (``"xla"``).  The launch count is set to 0 just before the kernel run
-   and must read 16 (one per layer) just after.  At every layer the
-   kernel's attention on that layer's own bf16 q, k, v is held against
-   the plain version with the bf16 limit above.  The same weights drawn in
-   float32: each layer's output through both paths within 2e-4 of its
-   largest value, and top-1 agreement >= 99% after one layer.
-3. serve   -- ``ServingEngine`` (4 slots, max_seq 256) answers 8 requests
-   of 32-96 prompt tokens and 32 new tokens each.
+   K2: the sweep of the JAX package's rwkv6 tests in float32 and bfloat16,
+   the rwkv6-7b prefill shape with random S_0, ragged S=1000, decays near
+   1 (a long memory) and two chained halves against one scan (1e-4).  In
+   the bfloat16 cases w stays float32, as the model passes it.  The final
+   state is held to the JAX test's 5e-2.  No PyTorch call computes WKV6.
+2. prefill -- llama3.2-1b ``forward`` on 4 x 1024 tokens in bf16, once
+   through K1 (``attn_impl="pallas"``) and once through the einsum path
+   (``"xla"``).  The launch counts are set to 0 just before the kernel run
+   and K1's must read 16 (one per layer), K2's 0, just after.  At every
+   layer K1 on that layer's own bf16 q, k, v is held against the plain
+   version with the bf16 limit above.  The same weights drawn in float32:
+   each layer's output through both paths within 2e-4 of its largest
+   value, and top-1 agreement >= 99% after one layer.
+3. serve   -- llama3.2-1b ``ServingEngine`` (4 slots, max_seq 256) answers
+   8 requests of 32-96 prompt tokens and 32 new tokens each; the decode
+   path launches no kernel.
+4. prefill_rwkv -- the same for rwkv6-7b (32 layers, d_model 4096, 64
+   heads of 64, bf16): K2 must launch 32 times in the kernel run and K1
+   none; K2 on each layer's own r, k, v, w, u against the plain version;
+   the float32 weights at depth 2 per layer and at depth 1 as above.
+5. serve_rwkv -- rwkv6-7b ``ServingEngine`` as in 3; it decodes through
+   the plain one-step scan, as the JAX package does, so K2 launches 0
+   times.
 
-It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
+Full-depth agreement of the two paths is printed, not gated: the random
+init makes a deep stack chaotic.  It prints a ``{"kernels": [...]}`` line,
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -59,6 +75,15 @@ SWEEP = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
 MASKS = [(True, 0), (True, 96), (False, 0)]
 # llama3.2-1b: 32 q heads, 8 kv heads, head dim 64, window 8192
 LLAMA_PREFILL = (4, 32, 8, 1024, 64, "bfloat16", True, 8192)
+# K2: the JAX package's rwkv6 sweep (tests/test_kernels.py) and the
+# rwkv6-7b prefill shape (64 heads of 64, 4 x 1024 tokens)
+RWKV_SWEEP = [(1, 2, 64, 16), (2, 2, 128, 32), (1, 1, 96, 64)]
+RWKV_MAIN = (4, 64, 1024, 64)
+STATE_TOL = 5e-2  # the JAX test's bound on the final state
+# ... and over the largest |state|: kernel and plain version run the same
+# sequential f32 recurrence, so they agree to ~1e-7 of it
+STATE_REL_TOL = 1e-4
+CHAIN_TOL = 1e-4
 
 
 def kernel_cases():
@@ -75,6 +100,23 @@ def kernel_cases():
               (1, 32, 8, 1000, 64, "bfloat16", False, 0, False, 10),
               (1, 32, 8, 1000, 64, "float32", False, 0, False, 10),
               (2, 4, 2, 100, 32, "bfloat16", False, 0, False, 10)]
+    return cases
+
+
+def rwkv_cases():
+    """(B, H, S, D, dtype, kind, iters) of every K2 case.  r, k, v, u and
+    the output are in ``dtype``; w, S_0 and S_T are float32.  Kinds:
+    "sweep" the JAX test's shapes; "main" the rwkv6-7b prefill shape, on
+    transposed (B,S,H,D) views as ``ops.rwkv6_scan`` passes them from
+    ``forward`` (the main-path row of the kernels record); "ragged" S=1000;
+    "long" decays in (0.951, 0.99988), the long memory of trained rwkv6
+    layers; "chain" two halves with the carried state against one scan."""
+    cases = [(B, H, S, D, dt, "sweep", 10) for (B, H, S, D) in RWKV_SWEEP
+             for dt in ("float32", "bfloat16")]
+    cases += [RWKV_MAIN + ("bfloat16", "main", 20),
+              (1, 64, 1000, 64, "bfloat16", "ragged", 10),
+              (2, 16, 1024, 64, "bfloat16", "long", 10),
+              (2, 8, 512, 64, "float32", "chain", 10)]
     return cases
 
 
@@ -236,29 +278,131 @@ def kernel_case(case, gen):
     return row
 
 
+def rwkv_inputs(case, gen):
+    """r, k, v, w (B,H,S,D), u (H,D) and S_0 (B,H,D,D) of one K2 case, with
+    the statistics of the JAX package's rwkv6 tests (r, k, v ~ 0.5 N;
+    w = sigmoid(N - 1) * 0.98 + 0.01; u ~ 0.3 N; S_0 ~ 0.2 N)."""
+    import torch
+    B, H, S, D, dtype, kind, _ = case
+    dt = getattr(torch, dtype)
+    model_layout = kind == "main"
+    shape = (B, S, H, D) if model_layout else (B, H, S, D)
+
+    def normal(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def seq(t):
+        return t.transpose(1, 2) if model_layout else t
+
+    r, k, v = (seq(normal(shape, 0.5).to(dt)) for _ in range(3))
+    if kind == "long":  # w = exp(-exp(x)), x in (-9, -3)
+        x = torch.rand(shape, generator=gen, device="cuda") * 6 - 9
+        w = torch.exp(-torch.exp(x))
+    else:
+        w = torch.sigmoid(normal(shape) - 1) * 0.98 + 0.01
+    return (r, k, v, seq(w), normal((H, D), 0.3).to(dt),
+            normal((B, H, D, D), 0.2))
+
+
+def state_gate(errs: dict, s, want_s) -> dict:
+    """Add the final state's errors to ``errs`` (from ``gate``): max abs
+    error within STATE_TOL and, over the largest |state|, STATE_REL_TOL."""
+    err = float((s - want_s).abs().max())
+    rel = err / max(float(want_s.abs().max()), 1e-30)
+    errs.update(state_abs_err=err, state_rel_err=rel,
+                ok=errs["ok"] and err < STATE_TOL and rel < STATE_REL_TOL)
+    return errs
+
+
+def rwkv_check_case(case, gen):
+    """Draw one K2 case's inputs and run the kernel: against its plain
+    version (output by ``gate``, final state by ``state_gate``), or for a
+    "chain" case its two halves against its one scan (CHAIN_TOL).  Returns
+    (errors, inputs)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rk
+    dtype, kind = case[4], case[5]
+    args = rwkv_inputs(case, gen)
+    out, s = rk.rwkv6_scan(*args)
+    if kind == "chain":
+        r, k, v, w, u, s0 = args
+        h = r.shape[2] // 2
+        o1, s1 = rk.rwkv6_scan(r[:, :, :h], k[:, :, :h], v[:, :, :h],
+                               w[:, :, :h], u, s0)
+        o2, want_s = rk.rwkv6_scan(r[:, :, h:], k[:, :, h:], v[:, :, h:],
+                                   w[:, :, h:], u, s1)
+        errs = gate(torch.cat([o1, o2], 2), out, dtype)
+        state_err = float((want_s - s).abs().max())
+        errs.update(gated_on="max_abs_err", tol=CHAIN_TOL,
+                    state_abs_err=state_err,
+                    state_rel_err=state_err / float(s.abs().max()),
+                    ok=errs["max_abs_err"] < CHAIN_TOL
+                    and state_err < CHAIN_TOL)
+        return errs, args
+    torch.cuda.synchronize()
+    want, want_s = ref.rwkv6_scan_ref(*args)
+    return state_gate(gate(out, want, dtype), s, want_s), args
+
+
+def rwkv_bound(r, w, u):
+    """Least time for one scan: r, k, v, w, u, S_0 read once and o, S_T
+    written once, or 5 D^2 + 5 D float32 operations per (b, h, t) (k^T v,
+    the decayed update, r S and the bonus) at the f32 CUDA-core peak.
+    Returns (ms, "bytes" | "operations", flops, bytes)."""
+    B, H, S, D = r.shape
+    n = B * H * S * D
+    nbytes = (4 * n * r.element_size() + n * w.element_size()
+              + u.numel() * u.element_size() + 2 * B * H * D * D * 4)
+    flops = B * H * S * (5 * D * D + 5 * D)
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def rwkv_case(case, gen):
+    """One K2 case: check (raises if over a limit), then time the kernel
+    and the plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rk
+    B, H, S, D, dtype, kind, iters = case
+    errs, args = rwkv_check_case(case, gen)
+    if not errs["ok"]:
+        raise RuntimeError(
+            f"rwkv6_scan disagrees at {case[:6]}: {errs['gated_on']} "
+            f"{errs[errs['gated_on']]} (limit {errs['tol']}), state "
+            f"{errs['state_abs_err']} ({errs['state_rel_err']} of its "
+            f"largest value)")
+    ms = cuda_ms(lambda: rk.rwkv6_scan(*args), iters)
+    plain_ms = cuda_ms(lambda: ref.rwkv6_scan_ref(*args), 1, warmup=1)
+    bound_ms, bound_by, flops, nbytes = rwkv_bound(args[0], args[3], args[4])
+    row = {"shape": [B, H, S, D], "dtype": dtype, "w_dtype": "float32",
+           "kind": kind, **errs, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "flops": flops, "bytes": nbytes}
+    log(f"[kernel] rwkv6_scan B={B} H={H} S={S} D={D} {dtype:8s} {kind:6s} "
+        f"abs_err={errs['max_abs_err']:.3g} rel_err={errs['max_rel_err']:.3g}"
+        f" state_err={errs['state_abs_err']:.3g} "
+        f"state_rel_err={errs['state_rel_err']:.3g} kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    return row
+
+
 def phase_kernel(seed: int):
+    """K1's and K2's cases; returns (rows, K1's main row, K2's main row)."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     rows = [kernel_case(case, gen) for case in kernel_cases()]
+    rwkv_rows = [rwkv_case(case, gen) for case in rwkv_cases()]
     main = next(r for r in rows if r["model_layout"])
-    return rows, main
+    rwkv_main = next(r for r in rwkv_rows if r["kind"] == "main")
+    return rows + rwkv_rows, main, rwkv_main
 
 
 # ---------------------------------------------------------------------------
-# phase 2: prefill
+# prefill helpers
 # ---------------------------------------------------------------------------
-
-def _forward_timed(model, cfg, tokens):
-    import torch
-    from repro_torch.models.model import forward
-    forward(model, cfg, {"tokens": tokens})  # warm-up (cuBLAS, allocator)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, _ = forward(model, cfg, {"tokens": tokens})
-    torch.cuda.synchronize()
-    return logits, time.perf_counter() - t0
-
 
 def _top1(a, b) -> float:
     return float((a.argmax(-1) == b.argmax(-1)).float().mean())
@@ -269,7 +413,7 @@ def _depth_agreement(model, cfg, tokens, depth: int) -> dict:
     layers only: top-1 agreement and max |logit difference|."""
     from types import SimpleNamespace
     from repro_torch.models.model import forward
-    part = SimpleNamespace(embed=model.embed, final_norm=model.final_norm,
+    part = SimpleNamespace(**dict(model.named_parameters(recurse=False)),
                            blocks=model.blocks[:depth])
     cfg = dataclasses.replace(cfg, n_layers=depth)
     lk, _ = forward(part, dataclasses.replace(cfg, attn_impl="pallas"),
@@ -280,34 +424,24 @@ def _depth_agreement(model, cfg, tokens, depth: int) -> dict:
             "max_abs_logit_diff": float((lk.float() - lx.float()).abs().max())}
 
 
-def _layerwise(model, cfg, tokens) -> dict:
-    """Every layer on the same input (the einsum path's output of the
-    layer before), so that nothing compounds across layers:
+def _layerwise(model, cfg, tokens, check) -> dict:
+    """Every layer on the same input (the plain path's output of the layer
+    before), so that nothing compounds across layers:
 
     - ``block_rel_diff``: the layer through both paths, max |difference|
       over max |output|;
-    - ``attn``: the kernel's attention on the layer's own q, k, v (the
-      model's score scale) against its plain version, by ``gate``."""
+    - ``kernel``: ``check(blk, x, positions, cfg)``, the kernel on the
+      layer's own inputs against its plain version."""
     import torch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
-    from repro_torch.models import attention as attn
     from repro_torch.models.blocks import block_fwd
-    from repro_torch.models.layers import apply_rope, rmsnorm
     win = cfg.sliding_window
     fk = block_fwd(dataclasses.replace(cfg, attn_impl="pallas"), win)
     fx = block_fwd(dataclasses.replace(cfg, attn_impl="xla"), win)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = model.embed[tokens]
-    res = {"block_rel_diff": [], "attn": []}
+    res = {"block_rel_diff": [], "kernel": []}
     for blk in model.blocks:
-        q, k, v = attn.qkv(blk, rmsnorm(x, blk.ln1, cfg.norm_eps))
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-        res["attn"].append(gate(
-            fa.flash_attention(q, k, v, causal=True, window=win),
-            ref.flash_attention_ref(q, k, v, True, win), cfg.dtype))
+        res["kernel"].append(check(blk, x, positions, cfg))
         yk, _ = fk(blk, x, positions)
         yx, _ = fx(blk, x, positions)
         res["block_rel_diff"].append(float(
@@ -316,40 +450,128 @@ def _layerwise(model, cfg, tokens) -> dict:
     return res
 
 
-def phase_prefill(seed: int):
+def _attention_check(blk, x, positions, cfg) -> dict:
+    """K1 on a llama layer's own q, k, v (the model's score scale) against
+    its plain version, by ``gate``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import apply_rope, rmsnorm
+    win = cfg.sliding_window
+    q, k, v = attn.qkv(blk, rmsnorm(x, blk.ln1, cfg.norm_eps))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    return gate(fa.flash_attention(q, k, v, causal=True, window=win),
+                ref.flash_attention_ref(q, k, v, True, win), cfg.dtype)
+
+
+def _scan_check(blk, x, positions, cfg) -> dict:
+    """K2 on an rwkv6 layer's own r, k, v, w, u from a zero state (as
+    ``forward`` calls it) against its plain version, by ``gate`` and
+    ``state_gate``."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rk
+    from repro_torch.models import rwkv
+    from repro_torch.models.layers import rmsnorm
+    B, _, d = x.shape
+    zshift = torch.zeros((B, 1, d), dtype=x.dtype, device=x.device)
+    zstate = torch.zeros((B, cfg.n_heads, cfg.head_dim, cfg.head_dim),
+                         device=x.device)
+    h = rmsnorm(x, blk.ln1, cfg.norm_eps)
+    r, k, v, w, _ = rwkv.time_mix_inputs(blk, h, cfg, zshift)
+    args = [t.transpose(1, 2) for t in (r, k, v, w)] + [blk.u, zstate]
+    out, s = rk.rwkv6_scan(*args)
+    want, want_s = ref.rwkv6_scan_ref(*args)
+    return state_gate(gate(out, want, cfg.dtype), s, want_s)
+
+
+def _counters():
+    from repro_torch.kernels import flash_attention, rwkv6_scan
+    return {"flash_attention": flash_attention, "rwkv6_scan": rwkv6_scan}
+
+
+def zero_launches():
+    for mod in _counters().values():
+        mod.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.LAUNCHES for name, mod in _counters().items()}
+
+
+def _check_launches(phase: str, got: dict, want: dict):
+    if got != want:
+        raise RuntimeError(f"{phase}: kernel launches {got}, want {want}")
+
+
+def _forward_timed(model, cfg, tokens, want: dict):
+    """One warmed-up ``forward``, timed, with every launch count set to 0
+    just before it and read just after (the main path's run when
+    ``cfg.attn_impl`` is "pallas"); the counts must equal ``want``."""
+    import torch
+    from repro_torch.models.model import forward
+    forward(model, cfg, {"tokens": tokens})  # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    zero_launches()  # the run starts here
+    t0 = time.perf_counter()
+    logits, _ = forward(model, cfg, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()  # ... and ends here
+    _check_launches(f"{cfg.name} forward ({cfg.attn_impl})", launches, want)
+    return logits, wall, launches
+
+
+def _check_logits(name, lg, shape):
+    import torch
+    if tuple(lg.shape) != shape or not bool(torch.isfinite(lg).all()):
+        raise RuntimeError(f"{name} logits: shape {tuple(lg.shape)} or "
+                           f"non-finite values")
+
+
+# ---------------------------------------------------------------------------
+# phases 2 and 4: prefill
+# ---------------------------------------------------------------------------
+
+# Per model path: its kernel (one launch per layer of a kernel-path
+# ``forward``) and the per-layer check of it, the float32 model's depth
+# (None: full) and the depths at which its two paths are compared.
+PREFILL = {
+    "llama3.2-1b": {"kernel": "flash_attention", "check": _attention_check,
+                    "f32_layers": None, "depths": (1, 2, 4, 8, 16)},
+    "rwkv6-7b": {"kernel": "rwkv6_scan", "check": _scan_check,
+                 "f32_layers": 2, "depths": (1, 2)},
+}
+
+
+def phase_prefill(seed: int, arch: str):
+    """``forward`` on 4 x 1024 tokens: bf16 at full depth through the
+    kernel and the plain path, then the same draws in float32."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.model import forward, init_params
-    base = get_config("llama3.2-1b")
+    from repro_torch.models.model import init_params
+    spec = PREFILL[arch]
+    base = get_config(arch)
     B, S = 4, 1024
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 1)
     tokens = torch.randint(0, base.vocab_size, (B, S), generator=gen,
                            device="cuda")
-    res = {"batch": B, "seq": S}
+    res = {"arch": arch, "batch": B, "seq": S}
 
     # bf16, full depth: the main path
     cfg_k = dataclasses.replace(base, attn_impl="pallas")
     cfg_x = dataclasses.replace(base, attn_impl="xla")
     model = init_params(base, seed, device="cuda")
-    forward(model, cfg_k, {"tokens": tokens})  # warm-up
-    torch.cuda.synchronize()
-    fa.LAUNCHES = 0  # the main path's run starts here
-    t0 = time.perf_counter()
-    logits_k, _ = forward(model, cfg_k, {"tokens": tokens})
-    torch.cuda.synchronize()
-    wall_k = time.perf_counter() - t0
-    launches = fa.LAUNCHES  # ... and ends here
-    if launches != base.n_layers:
-        raise RuntimeError(f"forward launched the kernel {launches} times, "
-                           f"want {base.n_layers}")
-    logits_x, wall_x = _forward_timed(model, cfg_x, tokens)
-    for name, lg in (("pallas", logits_k), ("xla", logits_x)):
-        if lg.shape != (B, S, base.vocab_size) or not bool(
-                torch.isfinite(lg).all()):
-            raise RuntimeError(f"bf16 {name} logits: shape "
-                               f"{tuple(lg.shape)} or non-finite values")
+    res["params"] = sum(p.numel() for p in model.parameters())
+    none = {name: 0 for name in _counters()}
+    logits_k, wall_k, launches = _forward_timed(
+        model, cfg_k, tokens, {**none, spec["kernel"]: base.n_layers})
+    logits_x, wall_x, _ = _forward_timed(model, cfg_x, tokens, none)
+    for name, lg in (("bf16 pallas", logits_k), ("bf16 xla", logits_x)):
+        _check_logits(name, lg, (*tokens.shape, base.vocab_size))
     res.update(launches=launches,
                bf16_max_abs_logit_diff=float(
                    (logits_k.float() - logits_x.float()).abs().max()),
@@ -358,76 +580,89 @@ def phase_prefill(seed: int):
                bf16_xla_tok_per_s=B * S / wall_x,
                bf16_pallas_wall_s=wall_k, bf16_xla_wall_s=wall_x)
     del logits_k, logits_x
-    res["bf16_layerwise"] = _layerwise(model, base, tokens)
+    res["bf16_layerwise"] = _layerwise(model, base, tokens, spec["check"])
     res["bf16_depth_1"] = _depth_agreement(model, base, tokens, 1)
     del model
     torch.cuda.empty_cache()
 
-    # The same draws in float32, where the two paths differ only by the
-    # order of f32 sums.  With this random init (attention scores of std
-    # ~128, near-argmax softmax) a difference that small still compounds
-    # over the layers, so agreement is read against depth and per layer.
-    cfg32 = dataclasses.replace(base, dtype="float32")
+    # The same draws in float32 (a cut model draws the same first layers),
+    # where the two paths differ only by the order of f32 sums.  With the
+    # random llama init (attention scores of std ~128, near-argmax softmax)
+    # a difference that small still compounds over the layers, so
+    # agreement is read against depth and per layer.
+    cfg32 = dataclasses.replace(base, dtype="float32",
+                                n_layers=spec["f32_layers"] or base.n_layers)
     model32 = init_params(cfg32, seed, device="cuda")
     res["f32_depth"] = [_depth_agreement(model32, cfg32, tokens, n)
-                        for n in (1, 2, 4, 8, 16)]
-    res["f32_layerwise"] = _layerwise(model32, cfg32, tokens)
+                        for n in spec["depths"]]
+    res["f32_layerwise"] = _layerwise(model32, cfg32, tokens, spec["check"])
     del model32
     torch.cuda.empty_cache()
     log("[prefill] " + json.dumps(res))
     one = res["f32_depth"][0]["top1"]
     if not one >= 0.99:
-        raise RuntimeError(f"float32, one layer: kernel and einsum paths "
-                           f"agree on top-1 at {one:.4f} of positions, "
-                           f"want >= 0.99")
+        raise RuntimeError(f"{arch} float32, one layer: kernel and plain "
+                           f"paths agree on top-1 at {one:.4f} of "
+                           f"positions, want >= 0.99")
     worst = max(res["f32_layerwise"]["block_rel_diff"])
     if not worst < 2e-4:
-        raise RuntimeError(f"float32 layer outputs of the kernel and einsum "
-                           f"paths differ by {worst:.3g} of their largest "
-                           f"value, want < 2e-4")
+        raise RuntimeError(f"{arch} float32 layer outputs of the kernel and "
+                           f"plain paths differ by {worst:.3g} of their "
+                           f"largest value, want < 2e-4")
     for dt in ("bf16", "f32"):
-        for i, g in enumerate(res[f"{dt}_layerwise"]["attn"]):
+        for i, g in enumerate(res[f"{dt}_layerwise"]["kernel"]):
             if not g["ok"]:
                 raise RuntimeError(
-                    f"{dt} layer {i}: the kernel's attention disagrees with "
-                    f"its plain version: {g['gated_on']} "
-                    f"{g[g['gated_on']]} >= {g['tol']}")
+                    f"{arch} {dt} layer {i}: {spec['kernel']} disagrees "
+                    f"with its plain version: {g['gated_on']} "
+                    f"{g[g['gated_on']]} (limit {g['tol']}), state "
+                    f"{g.get('state_abs_err')}, {g.get('state_rel_err')} "
+                    f"of its largest value")
     return res
 
 
 # ---------------------------------------------------------------------------
-# phase 3: serve
+# phases 3 and 5: serve
 # ---------------------------------------------------------------------------
 
-def phase_serve(seed: int):
+def phase_serve(seed: int, arch: str):
+    """8 requests of 32-96 prompt tokens, 32 new tokens each, on 4 slots.
+    The engine prefills and decodes through ``decode_step``, which
+    launches no kernel (as in the JAX package); every count must read 0."""
+    import gc
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.model import init_params
     from repro_torch.serve.serve_step import Request, ServingEngine
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(arch)
     model = init_params(cfg, seed, device="cuda")
     eng = ServingEngine(cfg, model, slots=4, max_seq=256, device="cuda")
     rs = np.random.RandomState(seed)
     reqs = [Request(i, rs.randint(0, cfg.vocab_size, size=rs.randint(32, 97)),
                     32) for i in range(8)]
-    n0 = fa.LAUNCHES
     torch.cuda.synchronize()
+    zero_launches()
     t0 = time.perf_counter()
     done = eng.run(reqs)
     wall = time.perf_counter() - t0  # run() returns host arrays
+    launches = read_launches()
     new = sum(len(r.out) for r in done)
     if len(done) != 8 or any(
             len(r.out) != 32 or r.out.min() < 0
             or r.out.max() >= cfg.vocab_size for r in done):
-        raise RuntimeError("serve: a request did not complete with 32 "
-                           "valid tokens")
-    res = {"requests": len(done), "prompt_tokens": int(sum(
+        raise RuntimeError(f"serve {arch}: a request did not complete with "
+                           f"32 valid tokens")
+    res = {"arch": arch, "requests": len(done), "prompt_tokens": int(sum(
                len(r.prompt) for r in reqs)), "new_tokens": new,
            "wall_s": wall, "tok_per_s": new / wall,
-           "kernel_launches": fa.LAUNCHES - n0}
+           "kernel_launches": launches}
     log("[serve] " + json.dumps(res))
+    _check_launches(f"serve {arch}", launches,
+                    {name: 0 for name in launches})
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -460,25 +695,32 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "warning" in line:
                 log(f"[build] {line.strip()}")
 
-    rows, main_row = phase_kernel(args.seed)
-    prefill = phase_prefill(args.seed)
-    serve = phase_serve(args.seed)
+    rows, fa_row, rwkv_row = phase_kernel(args.seed)
+    prefill = phase_prefill(args.seed, "llama3.2-1b")
+    serve = phase_serve(args.seed, "llama3.2-1b")
+    prefill_rwkv = phase_prefill(args.seed, "rwkv6-7b")
+    serve_rwkv = phase_serve(args.seed, "rwkv6-7b")
 
-    kernels = [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:65",
-        "launches": prefill["launches"],
-        "max_abs_err": main_row["max_abs_err"],
-        "max_rel_err": main_row["max_rel_err"], "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]
+    def record(name, replaces, row, launches):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches[name],
+                **{k: row[k] for k in (
+                    "max_abs_err", "max_rel_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")}}
+
+    kernels = [record("flash_attention",
+                      "src/repro/kernels/flash_attention.py:65", fa_row,
+                      prefill["launches"]),
+               record("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:71",
+                      rwkv_row, prefill_rwkv["launches"])]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({"card": card, "kernel_cases": rows,
                                    "prefill": prefill, "serve": serve,
+                                   "prefill_rwkv": prefill_rwkv,
+                                   "serve_rwkv": serve_rwkv,
                                    "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

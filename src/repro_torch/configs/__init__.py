@@ -9,10 +9,11 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-_PORTED = ("llama3_2_1b",)
+_PORTED = ("llama3_2_1b", "rwkv6_7b")
 
 _ALIASES = {
     "llama3.2-1b": "llama3_2_1b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 

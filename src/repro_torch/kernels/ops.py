@@ -1,7 +1,7 @@
 """Dispatch over the hand-written kernels, in model layout.
 
 A tensor on the card goes to the kernel; a tensor on the CPU goes to the
-kernel's plain version in ``ref``.  Nothing is padded: the kernel masks a
+kernel's plain version in ``ref``.  Nothing is padded: each kernel takes a
 ragged sequence length itself.
 """
 from __future__ import annotations
@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_scan as _rwkv
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -21,3 +22,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         out = _fa.flash_attention(qt, kt, vt, causal=causal, window=window)
     return out.transpose(1, 2)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
+    """Model layout r/k/v/w:(B,S,H,Dh), u:(H,Dh), state:(B,H,Dh,Dh).
+    Returns (out (B,S,H,Dh), new_state float32)."""
+    rt, kt, vt, wt = (t.transpose(1, 2) for t in (r, k, v, w))
+    if r.device.type == "cpu":
+        out, s = ref.rwkv6_scan_ref(rt, kt, vt, wt, u, state)
+    else:
+        out, s = _rwkv.rwkv6_scan(rt, kt, vt, wt, u, state)
+    return out.transpose(1, 2), s

@@ -35,3 +35,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf)
     return out.reshape(B, Hq, S, D).to(q.dtype)
+
+
+def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
+    """r,k,v,w: (B,H,S,D); u: (H,D); state: (B,H,D,D).
+    WKV6: S_t = diag(w_t) S_{t-1} + k_t^T v_t; o_t = r_t (diag(u)k_t^T v_t
+    + S_{t-1}), sequentially in float32.  Returns (out (B,H,S,D) in r's
+    dtype, new_state (B,H,D,D) float32)."""
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    s = state.float()
+    outs = []
+    for t in range(r.shape[2]):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]   # (B,H,D,D)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, t], uf * kv + s))
+        s = wf[:, :, t, :, None] * s + kv
+    return torch.stack(outs, 2).to(r.dtype), s

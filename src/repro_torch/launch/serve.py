@@ -5,6 +5,8 @@ same reduced config) plus ``--device``, which defaults to the card:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --requests 8 --max-new 16 [--device cpu]
+
+``--arch`` takes every ported architecture (llama3.2-1b, rwkv6-7b).
 """
 from __future__ import annotations
 

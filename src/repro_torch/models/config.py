@@ -7,9 +7,11 @@ are ignored by the others.  Configs are plain frozen dataclasses so they
 hash.
 
 ``attn_impl`` keeps the JAX package's two names.  In this package
-``"pallas"`` means the hand-written Hopper kernel
-(``repro_torch.kernels.flash_attention``) on a CUDA tensor, and its plain
-PyTorch version on a CPU tensor; ``"xla"`` means the plain einsum path.
+``"pallas"`` means the prefill's hand-written Hopper kernel
+(``repro_torch.kernels.flash_attention``, or ``rwkv6_scan`` for the ssm
+family) on a CUDA tensor, and its plain PyTorch version on a CPU tensor;
+``"xla"`` means the plain path (the einsum attention, the sequential
+scan).
 The mesh fields (``seq_shard_axis``, ``moe_expert_axis``,
 ``batch_shard_axes``) and ``remat`` are carried for that reason and are
 not read by the inference path.

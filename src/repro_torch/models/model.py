@@ -2,13 +2,12 @@
 
 A Python loop over the layers replaces the JAX package's ``lax.scan``;
 ``cfg.remat`` is ignored, since nothing here keeps activations for a
-backward pass.  Only llama-style dense models are ported
+backward pass.  Ported: llama-style dense models and rwkv6 (ssm)
 (``blocks._require_ported``).
 """
 from __future__ import annotations
 
-import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 from torch import nn
@@ -20,55 +19,54 @@ from repro_torch.models.layers import rmsnorm
 
 
 class Transformer(nn.Module):
-    """Parameters of a dense decoder with tied embeddings: ``embed``
-    (V, d), ``final_norm`` (d,), and one ``DenseBlock`` per layer in
-    ``blocks``.  The computation is in ``forward`` and ``decode_step``."""
+    """Parameters of a decoder: ``embed`` (V, d), ``unembed`` (d, V) when
+    the embeddings are untied, ``final_norm`` (d,), and one block per
+    layer in ``blocks`` (``DenseBlock`` or ``RWKVBlock`` by family).  The
+    computation is in ``forward`` and ``decode_step``."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  dtype: torch.dtype):
         super().__init__()
-        B._require_ported(cfg)
-
-        def param(*shape):
-            return nn.Parameter(torch.empty(shape, dtype=dtype,
-                                            device=device),
-                                requires_grad=False)
-
-        self.embed = param(cfg.vocab_size, cfg.d_model)
-        self.final_norm = param(cfg.d_model)
-        self.blocks = nn.ModuleList(B.DenseBlock(cfg, device, dtype)
+        block = B.RWKVBlock if cfg.family == "ssm" else B.DenseBlock
+        B.register_params(self, self.specs(cfg), device, dtype)
+        self.blocks = nn.ModuleList(block(cfg, device, dtype)
                                     for _ in range(cfg.n_layers))
+
+    @staticmethod
+    def specs(cfg: ModelConfig) -> B.Specs:
+        """``repro.models.model.init_params`` (model.py:25-36)."""
+        V, d = cfg.vocab_size, cfg.d_model
+        specs = {"embed": ((V, d), 0.02)}
+        if not cfg.tie_embeddings:
+            specs["unembed"] = B.fan_in(d, V)
+        specs["final_norm"] = ((d,), "ones")
+        return specs
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_scale(name: str, shape: Tuple[int, ...]) -> Optional[float]:
-    """``repro.models.layers.ParamFactory``'s rule: 0.02 for the embedding,
-    ones for norms (None), else 1/sqrt(fan_in) with fan_in = shape[-2]."""
-    if name == "embed":
-        return 0.02
-    if len(shape) == 1:
-        return None
-    return 1.0 / math.sqrt(max(1, shape[-2]))
-
-
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = None) -> Transformer:
     """Random weights from ``torch.Generator(seed)`` on ``device``
-    (default: the card), drawn in float32 and cast to ``cfg.dtype``."""
+    (default: the card), drawn in float32 and cast to ``cfg.dtype``.  Each
+    parameter is filled as its module's ``specs`` say: ones, zeros, or a
+    normal draw of the JAX package's std for that name."""
     dev = resolve_device(device)
     model = Transformer(cfg, dev, torch_dtype(cfg.dtype))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    for name, p in model.named_parameters():
-        scale = _init_scale(name.rsplit(".", 1)[-1], tuple(p.shape))
-        if scale is None:
-            p.fill_(1.0)
-        else:
-            p.copy_(torch.randn(p.shape, generator=gen, device=dev,
-                                dtype=torch.float32).mul_(scale))
+    for mod in (model, *model.blocks):
+        for name, (shape, init) in mod.specs(cfg).items():
+            p = getattr(mod, name)
+            if init == "ones":
+                p.fill_(1.0)
+            elif init == "zeros":
+                p.zero_()
+            else:
+                p.copy_(torch.randn(shape, generator=gen, device=dev,
+                                    dtype=torch.float32).mul_(init))
     return model
 
 
@@ -80,8 +78,11 @@ def _embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens]
 
 
-def _unembed(model: Transformer, x: torch.Tensor) -> torch.Tensor:
-    return x @ model.embed.t()  # tied embeddings
+def _unembed(model: Transformer, cfg: ModelConfig,
+             x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ model.embed.t()
+    return x @ model.unembed
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +104,7 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict,
         x, a = fn(blk, x, positions)
         aux = aux + a
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
-    return _unembed(model, x), aux
+    return _unembed(model, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +121,6 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: dict,
     x = _embed(model, token[:, None])
     fn = B.block_decode(cfg, win, seq_sharded)
     for i, blk in enumerate(model.blocks):
-        x = fn(blk, cache["k"][i], cache["v"][i], x, pos)
+        x = fn(blk, {name: t[i] for name, t in cache.items()}, x, pos)
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
-    return _unembed(model, x)[:, 0], cache
+    return _unembed(model, cfg, x)[:, 0], cache

@@ -48,16 +48,17 @@ def test_config_is_a_copy_of_the_jax_config():
     from repro_torch.models.config import ModelConfig
     assert ([f.name for f in dataclasses.fields(ModelConfig)]
             == [f.name for f in dataclasses.fields(JaxModelConfig)])
-    assert (dataclasses.asdict(get_config("llama3.2-1b"))
-            == dataclasses.asdict(jax_get_config("llama3.2-1b")))
-    assert list_archs() == ["llama3.2-1b"]
-    for name in ("rwkv6-7b", "no-such-model"):
+    for name in ("llama3.2-1b", "rwkv6-7b"):
+        assert (dataclasses.asdict(get_config(name))
+                == dataclasses.asdict(jax_get_config(name)))
+    assert list_archs() == ["llama3.2-1b", "rwkv6-7b"]
+    for name in ("hymba-1.5b", "no-such-model"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             get_config(name)
 
 
 @pytest.mark.parametrize("change", [{"family": "moe"}, {"qkv_bias": True},
-                                    {"tie_embeddings": False}])
+                                    {"family": "hybrid"}])
 def test_unported_options_raise(change):
     cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(), **change)
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -94,6 +95,17 @@ def test_forward_matches_jax(impl, window):
     got, aux = tm.forward(model, cfg, {"tokens": torch.from_numpy(toks)},
                           window=window)
     assert got.shape == want.shape and float(aux) == 0.0
+    assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < TOL
+
+
+def test_untied_embeddings_match_jax():
+    """A separate ``unembed`` (d, V), as rwkv6 has, on the dense family."""
+    cfg = _cfg(tie_embeddings=False)
+    params, model = _pair(cfg)
+    assert tuple(model.unembed.shape) == (cfg.d_model, cfg.vocab_size)
+    toks = _tokens(cfg, 2, 8)
+    want, _ = jax_forward(params, cfg, {"tokens": jnp.asarray(toks)})
+    got, _ = tm.forward(model, cfg, {"tokens": torch.from_numpy(toks)})
     assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < TOL
 
 

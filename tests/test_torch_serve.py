@@ -72,3 +72,11 @@ def test_launcher_serves_on_cpu(capsys):
                         "--max-new", "2", "--max-seq", "16"])
     assert rep["requests"] == 3 and rep["tokens"] == 6
     assert "tok_per_s" in capsys.readouterr().out
+
+
+def test_launcher_serves_rwkv_on_cpu(capsys):
+    rep = tlaunch.main(["--arch", "rwkv6-7b", "--device", "cpu",
+                        "--requests", "2", "--max-new", "3",
+                        "--max-seq", "16"])
+    assert rep["arch"] == "rwkv6-7b-smoke"
+    assert rep["requests"] == 2 and rep["tokens"] == 6
