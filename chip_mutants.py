@@ -12,7 +12,13 @@ cases through each build with the smoke's own checks:
   bfloat16 case of the kernel phase and ``chip_smoke.gate``;
 - the WKV6 scan (K2): faults anywhere in the source, run through every K2
   case of the kernel phase and ``chip_smoke.rwkv_check_case`` (output,
-  final state and chaining).
+  final state and chaining);
+- RMSNorm (K3): faults anywhere in the source, run through every K3 case
+  and ``chip_smoke.rms_check_case``;
+- the scheduler kernels (K4 ``find_alloc``, K5 ``commit_scan``): faults
+  anywhere in the source, run on the fig5 tables of every size and
+  topology of the kernel phase through ``chip_smoke.find_alloc_check`` and
+  ``commit_scan_check`` (bitwise; one ulp on a spread payoff).
 
 The unchanged sources run first as the controls.  A fault is caught when
 at least one case exceeds its limit.  Exits non-zero if a control fails or
@@ -84,10 +90,37 @@ RWKV_MUTANTS = {
         "fmaf(ww[e], st[i + e], kk[e] * vj);",
         "the final state is emitted one step early"),
 }
+RMS_MUTANTS = {
+    "no_eps": ("static_cast<float>(D) + eps)", "static_cast<float>(D))",
+               "eps is dropped from the mean square"),
+    "mean_over_d_minus_1": (
+        "static_cast<float>(D) + eps)", "static_cast<float>(D - 1) + eps)",
+        "the mean square divides by D - 1"),
+    "no_scale": ("return xf * inv * s;", "return xf * inv;",
+                 "the scale is skipped"),
+}
+FIND_ALLOC_MUTANTS = {
+    "prefix_one_short": (
+        "const bool e = p < L && s_valid[p] && s_rank[p] < k;",
+        "const bool e = p < L && s_valid[p] && s_rank[p] < k - 1;",
+        "each spread prefix k takes only the types of prefix k - 1"),
+}
+COMMIT_SCAN_MUTANTS = {
+    "no_commit": (
+        "      s.free_s[m] = __dsub_rn(s.free_s[m], "
+        "static_cast<double>(cnt));\n      s.gamma_s[m] += cnt;\n", "",
+        "the winner is not committed into the carry"),
+    "mu_gate_inverted": ("const bool ok = v1 > 0.0;",
+                         "const bool ok = !(v1 > 0.0);",
+                         "the mu_j > 0 admission gate is inverted"),
+}
 # kernel -> its faults and the part of its source they go in (after the
 # marker, or all of it)
 KERNELS = {"flash_attention": (FA_MUTANTS, "// bf16: tensor cores"),
-           "rwkv6_scan": (RWKV_MUTANTS, None)}
+           "rwkv6_scan": (RWKV_MUTANTS, None),
+           "rmsnorm": (RMS_MUTANTS, None),
+           "find_alloc": (FIND_ALLOC_MUTANTS, None),
+           "commit_scan": (COMMIT_SCAN_MUTANTS, None)}
 # the JAX package's bf16 kernel-test tolerance (tests/test_kernels.py), a
 # plain max abs error, reported beside the gate for comparison
 ABS_TOL = 5e-2
@@ -111,7 +144,8 @@ def build(sources: dict, workdir: Path) -> dict:
         cu.write_text(text)
         lib = workdir / f"lib{name}.so"
         procs[name] = (lib, subprocess.Popen(
-            [nvcc, *kbuild.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            [nvcc, *kbuild.NVCC_FLAGS, "-I", str(kbuild.CSRC), "-o",
+             str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
     for name, (lib, proc) in procs.items():
@@ -123,13 +157,30 @@ def build(sources: dict, workdir: Path) -> dict:
     return out
 
 
+_SCHED_TABLES = {}
+
+
+def sched_tables() -> dict:
+    """(n, topo) -> (K4 tables, K5 tables) of the kernel phase, built
+    once."""
+    if not _SCHED_TABLES:
+        for n in chip_smoke.SCHED_SIZES:
+            for topo in ("grown", "bursty"):
+                _SCHED_TABLES[(n, topo)] = chip_smoke.sched_tables(
+                    n, topo)[:2]
+    return _SCHED_TABLES
+
+
 def run_cases(kernel: str, lib: Path) -> list:
     """The kernel's cases through the library at ``lib``, on the smoke's
-    inputs (seed 0): K1's bfloat16 cases, or every K2 case."""
+    inputs (seed 0): K1's bfloat16 cases, every K2 and K3 case, or K4's
+    and K5's fig5 tables."""
     import torch
-    from repro_torch.kernels import flash_attention, rwkv6_scan
-    mod = {"flash_attention": flash_attention, "rwkv6_scan": rwkv6_scan}[
-        kernel]
+    from repro_torch.kernels import (commit_scan, find_alloc,
+                                     flash_attention, rmsnorm, rwkv6_scan)
+    mod = {"flash_attention": flash_attention, "rwkv6_scan": rwkv6_scan,
+           "rmsnorm": rmsnorm, "find_alloc": find_alloc,
+           "commit_scan": commit_scan}[kernel]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
@@ -139,10 +190,20 @@ def run_cases(kernel: str, lib: Path) -> list:
                 if case[5] == "bfloat16":
                     errs, _ = chip_smoke.check_case(case, gen)
                     rows.append({"case": list(case[:8]), **errs})
-        else:
+        elif kernel == "rwkv6_scan":
             for case in chip_smoke.rwkv_cases():
                 errs, _ = chip_smoke.rwkv_check_case(case, gen)
                 rows.append({"case": list(case[:6]), **errs})
+        elif kernel == "rmsnorm":
+            for case in chip_smoke.RMS_CASES:
+                errs, _ = chip_smoke.rms_check_case(case, gen)
+                rows.append({"case": list(case[:5]), **errs})
+        else:
+            check = (chip_smoke.find_alloc_check if kernel == "find_alloc"
+                     else chip_smoke.commit_scan_check)
+            for (n, topo), tabs in sched_tables().items():
+                verdict = check(tabs[kernel == "commit_scan"])[0]
+                rows.append({"case": [n, topo], **verdict})
     return rows
 
 
@@ -175,12 +236,15 @@ def main(argv=None) -> int:
                    "cases_over_limit": len(failing),
                    "cases_over_abs_tol": sum(r["max_abs_err"] >= ABS_TOL
                                              for r in rows),
-                   "worst_rel_err": max(r["max_rel_err"] for r in rows),
+                   "worst_rel_err": max(r.get("max_rel_err", 0.0)
+                                        for r in rows),
                    "worst_abs_err": max(r["max_abs_err"] for r in rows),
                    "worst_state_err": max(r.get("state_abs_err", 0.0)
                                           for r in rows),
                    "worst_state_rel_err": max(r.get("state_rel_err", 0.0)
                                               for r in rows),
+                   "mismatched": sorted({f for r in rows
+                                         for f in r.get("mismatched", [])}),
                    "caught_by": [r["case"] for r in failing], "rows": rows}
             report.setdefault(kernel, {})[name] = rep
             if bool(failing) != (name != "control"):
@@ -191,7 +255,9 @@ def main(argv=None) -> int:
                   f"rel_err {rep['worst_rel_err']:.4g}, abs_err "
                   f"{rep['worst_abs_err']:.4g}, state_err "
                   f"{rep['worst_state_err']:.4g} (rel "
-                  f"{rep['worst_state_rel_err']:.4g})", flush=True)
+                  f"{rep['worst_state_rel_err']:.4g})"
+                  + (f"; differs in {rep['mismatched']}"
+                     if rep["mismatched"] else ""), flush=True)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -2,14 +2,17 @@
 
 A tensor on the card goes to the kernel; a tensor on the CPU goes to the
 kernel's plain version in ``ref``.  Nothing is padded: each kernel takes a
-ragged sequence length itself.
+ragged sequence length (or row count) itself.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import commit_scan as _commit
+from repro_torch.kernels import find_alloc as _find
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import rwkv6_scan as _rwkv
 
 
@@ -34,3 +37,27 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         out, s = _rwkv.rwkv6_scan(rt, kt, vt, wt, u, state)
     return out.transpose(1, 2), s
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """x (..., D), scale (D,) -> x's shape and dtype (K3)."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm_ref(x, scale, eps)
+    return _rms.rmsnorm(x, scale, eps)
+
+
+def find_alloc(*args, n_nodes: int, comm_frac: float, wmax: int):
+    """FIND_ALLOC of a batch of jobs (K4); arguments and results as
+    ``ref.find_alloc_ref``."""
+    if args[0].device.type == "cpu":
+        return ref.find_alloc_ref(*args, n_nodes, comm_frac, wmax)
+    return _find.find_alloc(*args, n_nodes, comm_frac, wmax)
+
+
+def commit_scan(*args, n_nodes: int, comm_frac: float, wmax: int):
+    """The sequential greedy commit of a batch of jobs (K5); arguments
+    and results as ``ref.commit_scan_ref``."""
+    if args[0].device.type == "cpu":
+        return ref.commit_scan_ref(*args, n_nodes, comm_frac, wmax)
+    return _commit.commit_scan(*args, n_nodes, comm_frac, wmax)

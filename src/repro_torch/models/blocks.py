@@ -14,6 +14,7 @@ from typing import Dict, Tuple, Union
 import torch
 from torch import nn
 
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv
 from repro_torch.models.config import ModelConfig
@@ -94,15 +95,24 @@ class RWKVBlock(_Block):
                 "wr_c": fan_in(d, d)}
 
 
+def norm_fn(cfg: ModelConfig):
+    """The RMSNorm of ``forward``: kernel K3 (``ops.rmsnorm``) on the
+    kernel path (``attn_impl == "pallas"``), the plain norm otherwise.
+    ``decode_step`` always takes the plain norm, as the JAX package's
+    decode reaches no kernel."""
+    return ops.rmsnorm if cfg.attn_impl == "pallas" else rmsnorm
+
+
 def block_fwd(cfg: ModelConfig, window: int):
     """Returns f(block, x, positions) -> (x, aux)."""
     _require_ported(cfg)
     eps = cfg.norm_eps
+    norm = norm_fn(cfg)
 
     def dense(p: DenseBlock, x, positions):
-        h = rmsnorm(x, p.ln1, eps)
+        h = norm(x, p.ln1, eps)
         x = x + attn.self_attention(p, h, cfg, positions, window)
-        h = rmsnorm(x, p.ln2, eps)
+        h = norm(x, p.ln2, eps)
         x = x + swiglu(h, p.w_gate, p.w_up, p.w_down)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -111,10 +121,10 @@ def block_fwd(cfg: ModelConfig, window: int):
         zshift = torch.zeros((B, 1, d), dtype=x.dtype, device=x.device)
         zstate = torch.zeros((B, cfg.n_heads, cfg.head_dim, cfg.head_dim),
                              dtype=torch.float32, device=x.device)
-        h = rmsnorm(x, p.ln1, eps)
+        h = norm(x, p.ln1, eps)
         y, _, _ = rwkv.time_mix(p, h, cfg, zshift, zstate, cfg.attn_impl)
         x = x + y
-        h = rmsnorm(x, p.ln2, eps)
+        h = norm(x, p.ln2, eps)
         y, _ = rwkv.channel_mix(p, h, zshift)
         return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -9,13 +9,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * scale.float()).to(x.dtype)
+# The plain RMSNorm (float32 math, cast back): the plain version of kernel
+# K3, which the kernel path of ``forward`` takes instead (blocks.norm_fn).
+from repro_torch.kernels.ref import rmsnorm_ref as rmsnorm  # noqa: F401
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -103,7 +103,7 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict,
     for blk in model.blocks:
         x, a = fn(blk, x, positions)
         aux = aux + a
-    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    x = B.norm_fn(cfg)(x, model.final_norm, cfg.norm_eps)
     return _unembed(model, cfg, x), aux
 
 

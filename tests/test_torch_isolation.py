@@ -1,7 +1,6 @@
 """The port stands alone: no ``jax`` and no ``repro`` import, anywhere in
 ``src/repro_torch``, ``chip_smoke.py`` or ``chip_mutants.py``, and it
-serves with both
-blocked."""
+serves and schedules with both blocked."""
 import ast
 import os
 import subprocess
@@ -29,7 +28,22 @@ def test_no_jax_or_repro_imports():
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"src/repro_torch/models/rwkv.py",
             "src/repro_torch/kernels/rwkv6_scan.py",
-            "src/repro_torch/configs/rwkv6_7b.py"} <= names
+            "src/repro_torch/configs/rwkv6_7b.py",
+            "src/repro_torch/kernels/rmsnorm.py",
+            "src/repro_torch/kernels/find_alloc.py",
+            "src/repro_torch/kernels/commit_scan.py",
+            "src/repro_torch/core/types.py",
+            "src/repro_torch/core/utility.py",
+            "src/repro_torch/core/throughput.py",
+            "src/repro_torch/core/trace.py",
+            "src/repro_torch/core/schedulers.py",
+            "src/repro_torch/core/pricing.py",
+            "src/repro_torch/core/dp.py",
+            "src/repro_torch/core/batch_solver.py",
+            "src/repro_torch/core/hadar.py",
+            "src/repro_torch/core/simulator.py",
+            "src/repro_torch/sim/metrics.py",
+            "src/repro_torch/sim/engine.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in FORBIDDEN]
@@ -54,6 +68,18 @@ for arch in ("llama3.2-1b", "rwkv6-7b"):
     (r,) = eng.run([Request(0, np.arange(3), 2)])
     assert len(r.out) == 2
     print("served", arch, r.out.tolist())
+from repro_torch.core.hadar import HadarScheduler
+from repro_torch.core.simulator import simulate
+from repro_torch.core.trace import grown_cluster, philly_trace
+from repro_torch.core.types import clone_jobs
+cluster = grown_cluster(40)
+jobs = philly_trace(n_jobs=40, seed=1, types=cluster.gpu_types)
+rounds = {s: HadarScheduler(solver=s, device="cpu").schedule(
+    0.0, 360.0, clone_jobs(jobs), cluster) for s in ("numpy", "cuda")}
+assert rounds["numpy"] == rounds["cuda"] and rounds["numpy"]
+res = simulate(HadarScheduler(solver="numpy"), philly_trace(n_jobs=6, seed=1),
+               grown_cluster(6))
+print("scheduled", len(rounds["numpy"]), "jobs; simulated", res.avg_jct())
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 """
@@ -67,3 +93,4 @@ def test_serves_with_jax_and_repro_blocked():
     assert res.returncode == 0, res.stderr
     assert "served llama3.2-1b" in res.stdout
     assert "served rwkv6-7b" in res.stdout
+    assert "scheduled" in res.stdout
