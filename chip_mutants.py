@@ -9,7 +9,8 @@ directory (one ``nvcc`` each, all at once), and runs the smoke's kernel
 cases through each build with the smoke's own checks:
 
 - flash attention (K1): faults in its bf16 kernel only, run through every
-  bfloat16 case of the kernel phase and ``chip_smoke.gate``;
+  bfloat16 case of the kernel phase and ``chip_smoke.check_case`` (the
+  gate and the determinism check);
 - the WKV6 scan (K2): faults anywhere in the source, run through every K2
   case of the kernel phase and ``chip_smoke.rwkv_check_case`` (output,
   final state and chaining);
@@ -40,27 +41,36 @@ import chip_smoke
 # name -> (text in the bf16 kernel, its replacement, what the fault is)
 FA_MUTANTS = {
     "skip_last_tile": (
-        "kt < kt_end; ++kt", "kt < kt_end - 1; ++kt",
+        "kt1 = (hi + TK - 1) / TK;", "kt1 = (hi + TK - 1) / TK - 1;",
         "the key-tile loop stops one tile early"),
     "late_skip_tile": (
-        "kt < kt_end; ++kt", "kt < kt_end - (q0 >= 512); ++kt",
+        "kt1 = (hi + TK - 1) / TK;", "kt1 = (hi + TK - 1) / TK - (q0 >= 512);",
         "q tiles from row 512 on skip their last key tile"),
     "causal_edge": (
-        "if (causal) in = in && col <= row;",
-        "if (causal) in = in && col <= row + 1;",
+        "if (causal) in = in && col <= r;",
+        "if (causal) in = in && col <= r + 1;",
         "each row also attends to the next key"),
     "window_edge": (
-        "if (window > 0) in = in && col > row - window;",
-        "if (window > 0) in = in && col >= row - window;",
+        "if (window > 0) in = in && col > r - window;",
+        "if (window > 0) in = in && col >= r - window;",
         "each windowed row attends to one key too many"),
     "ragged_keys": (
-        "bool in = col < S;\n        if (causal)",
-        "bool in = true;\n        if (causal)",
-        "key columns past S enter the softmax as zero keys"),
+        "bool in = col < S;", "bool in = true;",
+        "key columns past S enter the softmax as (zero-filled) keys"),
     "no_rescale": (
-        "acc[j][0] *= alpha[0];\n      acc[j][1] *= alpha[0];\n"
-        "      acc[j][2] *= alpha[1];\n      acc[j][3] *= alpha[1];", "",
+        "    o[4 * j + 0] *= alpha[0];\n    o[4 * j + 1] *= alpha[0];\n"
+        "    o[4 * j + 2] *= alpha[1];\n    o[4 * j + 3] *= alpha[1];\n", "",
         "acc is not rescaled when the running max grows"),
+    "wrong_stage": (
+        "const uint32_t kv = sKV + stage * Gm::STAGE_BYTES;",
+        "const uint32_t kv = sKV + ((stage + 1) % STAGES) * Gm::STAGE_BYTES;",
+        "the consumers read the next ring stage's K and V tiles"),
+    "edge_as_interior": (
+        "(causal && k0 + TK - 1 > r0)", "(causal && k0 > r0)",
+        "the tile on the causal diagonal skips the mask"),
+    "no_log2e": (
+        "const float sl2 = scale * LOG2E;", "const float sl2 = scale;",
+        "exp2f takes the scaled score without the folded log2(e)"),
 }
 _STEP = ("          acc[e] = fmaf(rr[e], st[i + e], acc[e]);  "
          "// o_t reads S_{t-1}\n",
@@ -116,7 +126,7 @@ COMMIT_SCAN_MUTANTS = {
 }
 # kernel -> its faults and the part of its source they go in (after the
 # marker, or all of it)
-KERNELS = {"flash_attention": (FA_MUTANTS, "// bf16: tensor cores"),
+KERNELS = {"flash_attention": (FA_MUTANTS, "// bf16: wgmma on a TMA ring"),
            "rwkv6_scan": (RWKV_MUTANTS, None),
            "rmsnorm": (RMS_MUTANTS, None),
            "find_alloc": (FIND_ALLOC_MUTANTS, None),

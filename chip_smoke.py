@@ -20,9 +20,11 @@ exits non-zero.
    (``rowblock_rel_err``), so the limit follows the output's size along
    the sequence.
    K1: the shape sweep of the JAX package's kernel tests, the llama3.2-1b
-   prefill shapes and ragged S=100 and S=1000; timed beside
-   ``scaled_dot_product_attention`` (a yardstick only; the port never
-   calls it).
+   prefill shapes, ragged S=100 and S=1000, a window of 300 at S=2048
+   (its lower edge inside a key tile) and D=128 at S=1024 (a row in two
+   swizzle boxes); every case runs twice and the two outputs must be
+   bitwise equal; timed beside ``scaled_dot_product_attention`` (a
+   yardstick only; the port never calls it).
    K2: the sweep of the JAX package's rwkv6 tests in float32 and bfloat16,
    the rwkv6-7b prefill shape with random S_0, ragged S=1000, decays near
    1 (a long memory) and two chained halves against one scan (1e-4).  In
@@ -162,7 +164,9 @@ def kernel_cases():
               (1, 32, 8, 1000, 64, "bfloat16", True, 8192, False, 20),
               (1, 32, 8, 1000, 64, "bfloat16", False, 0, False, 10),
               (1, 32, 8, 1000, 64, "float32", False, 0, False, 10),
-              (2, 4, 2, 100, 32, "bfloat16", False, 0, False, 10)]
+              (2, 4, 2, 100, 32, "bfloat16", False, 0, False, 10),
+              (1, 32, 8, 2048, 64, "bfloat16", True, 300, False, 10),
+              (2, 16, 4, 1024, 128, "bfloat16", True, 0, False, 10)]
     return cases
 
 
@@ -320,9 +324,10 @@ def gate(out, want, dtype: str) -> dict:
 
 
 def check_case(case, gen):
-    """Draw one case's inputs, run the kernel and its plain version.
-    Returns (errors from ``gate``, (q, k, v, plain output)).  Model-layout cases take
-    transposed views of (B,S,H,D) tensors."""
+    """Draw one case's inputs, run the kernel twice and its plain version
+    once.  Returns (errors from ``gate`` with "deterministic": the two
+    kernel outputs are bitwise equal, (q, k, v, plain output)).
+    Model-layout cases take transposed views of (B,S,H,D) tensors."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -337,9 +342,13 @@ def check_case(case, gen):
 
     q, k, v = make(Hq), make(Hkv), make(Hkv)
     out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     want = ref.flash_attention_ref(q, k, v, causal, window)
-    return gate(out, want, dtype), (q, k, v, want)
+    errs = gate(out, want, dtype)
+    errs["deterministic"] = bool(torch.equal(out, again))
+    errs["ok"] = errs["ok"] and errs["deterministic"]
+    return errs, (q, k, v, want)
 
 
 def kernel_case(case, gen):
@@ -349,6 +358,9 @@ def kernel_case(case, gen):
     from repro_torch.kernels import ref
     B, Hq, Hkv, S, D, dtype, causal, window, model_layout, iters = case
     errs, (q, k, v, want) = check_case(case, gen)
+    if not errs["deterministic"]:
+        raise RuntimeError(f"flash_attention gave two outputs for the same "
+                           f"inputs at {case[:8]}")
     if not errs["ok"]:
         raise RuntimeError(
             f"flash_attention disagrees with its plain version at {case[:8]}:"
@@ -373,8 +385,8 @@ def kernel_case(case, gen):
         f"causal={int(causal)} window={window:5d}  "
         f"abs_err={errs['max_abs_err']:.3g} rel_err={errs['max_rel_err']:.3g} "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
-        f"({bound_by}) {row['tflops']:.1f} TFLOP/s")
+        f"library_ms={library_ms:.4f} ({ms / library_ms:.2f}x) "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) {row['tflops']:.1f} TFLOP/s")
     return row
 
 

@@ -18,13 +18,18 @@ from repro_torch.kernels import rwkv6_scan as _rwkv
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Model layout q:(B,S,Hq,Dh), k/v:(B,S,Hkv,Dh) -> (B,S,Hq,Dh)."""
+    """Model layout q:(B,S,Hq,Dh), k/v:(B,S,Hkv,Dh) -> (B,S,Hq,Dh),
+    contiguous: the kernel writes it in place through the transposed view,
+    so the output projection flattens the heads without a copy."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.device.type == "cpu":
-        out = ref.flash_attention_ref(qt, kt, vt, causal, window)
+        out.transpose(1, 2).copy_(
+            ref.flash_attention_ref(qt, kt, vt, causal, window))
     else:
-        out = _fa.flash_attention(qt, kt, vt, causal=causal, window=window)
-    return out.transpose(1, 2)
+        _fa.flash_attention(qt, kt, vt, causal=causal, window=window,
+                            out=out.transpose(1, 2))
+    return out
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

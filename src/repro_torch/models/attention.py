@@ -29,7 +29,8 @@ def qkv(p, x: torch.Tensor):
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """(B,S,Hq,Dh) @ (Hq,Dh,d) -> (B,S,d)."""
+    """(B,S,Hq,Dh) @ (Hq,Dh,d) -> (B,S,d).  The flatten is a view when
+    ``out`` is contiguous, as the kernel path's output is."""
     return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
 
 

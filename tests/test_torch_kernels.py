@@ -104,3 +104,61 @@ def test_kernel_wrapper_rejects_cpu_tensors():
         tfa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2))
     assert tfa.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 96), (False, 0)])
+def test_ops_flash_attention_returns_model_layout(dtype, causal, window):
+    """``ops.flash_attention`` returns a contiguous (B,S,Hq,D) tensor, the
+    layout the kernel writes in place on the card, with the JAX package's
+    values, so the output projection flattens the heads without a copy."""
+    B, S, Hq, Hkv, D = 2, 256, 4, 2, 64
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, S, Hq, Hkv, D, 3), dtype)
+    out = tops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert out.shape == (B, S, Hq, D) and out.is_contiguous()
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                impl="pallas")
+    err = float(np.max(np.abs(_f32(out) - _f32(want))))
+    assert err < TOL[dtype], err
+
+
+def _bf16_view(kind):
+    """(tensor, accepted by TMA?) for one layout the bf16 kernel may get."""
+    B, S, Hq, Hkv, D = 2, 48, 4, 2, 64
+    bf = torch.bfloat16
+    if kind == "model_q":  # ops' transposed views of (B,S,H,D) tensors
+        return torch.empty(B, S, Hq, D, dtype=bf).transpose(1, 2), True
+    if kind == "model_kv_d32":
+        return torch.empty(B, S, Hkv, 32, dtype=bf).transpose(1, 2), True
+    if kind == "model_d128":
+        return torch.empty(B, S, Hq, 128, dtype=bf).transpose(1, 2), True
+    if kind == "kernel_layout":
+        return torch.empty(B, Hq, S, D, dtype=bf), True
+    if kind == "extent_one_odd_stride":  # a dim of extent 1 is never stepped
+        t = torch.empty(B * S * D, dtype=bf)
+        return t.as_strided((B, 1, S, D), (S * D, 7, D, 1)), True
+    if kind == "misaligned_2_bytes":
+        flat = torch.empty(B * Hq * S * D + 64, dtype=bf)
+        return flat[1:1 + B * Hq * S * D].view(B, Hq, S, D), False
+    if kind == "misaligned_8_bytes":
+        flat = torch.empty(B * Hq * S * D + 64, dtype=bf)
+        return flat[4:4 + B * Hq * S * D].view(B, Hq, S, D), False
+    if kind == "stride_not_16_bytes":  # rows of 68 bf16 = 136 bytes
+        t = torch.empty(B, S, Hq, 68, dtype=bf)[..., :D]
+        return t.transpose(1, 2), False
+    if kind == "head_dim_strided":
+        return torch.empty(B, Hq, S, 2 * D, dtype=bf)[..., ::2], False
+    raise KeyError(kind)
+
+
+@pytest.mark.parametrize("kind", [
+    "model_q", "model_kv_d32", "model_d128", "kernel_layout",
+    "extent_one_odd_stride", "misaligned_2_bytes", "misaligned_8_bytes",
+    "stride_not_16_bytes", "head_dim_strided"])
+def test_tma_layout_rule(kind):
+    """The bf16 kernel's layout rule (TMA): D contiguous, a 16-byte aligned
+    pointer and every other stride a multiple of 16 bytes."""
+    t, accepted = _bf16_view(kind)
+    err = tfa.tma_layout_error(t.shape, t.stride(), t.element_size(),
+                               t.data_ptr())
+    assert (err is None) == accepted, err
