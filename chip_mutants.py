@@ -71,6 +71,11 @@ FA_MUTANTS = {
     "no_log2e": (
         "const float sl2 = scale * LOG2E;", "const float sl2 = scale;",
         "exp2f takes the scaled score without the folded log2(e)"),
+    "out_map_dense": (
+        "a.os, 64, Gm::BOX))",
+        "Strides{(long long)a.Hq * a.S * D, (long long)a.S * D, D}, 64, "
+        "Gm::BOX))",
+        "the output map takes dense (B,Hq,S,D) strides, not the given ones"),
 }
 _STEP = ("          acc[e] = fmaf(rr[e], st[i + e], acc[e]);  "
          "// o_t reads S_{t-1}\n",

@@ -40,13 +40,14 @@ exits non-zero.
    cluster and bursty 3-pod topology): every result bitwise equal to the
    plain version's, a spread payoff within one ulp (reported).  First the
    running NumPy is checked to sum float64 in the order both replicate.
-2. prefill -- llama3.2-1b ``forward`` on 4 x 1024 tokens in bf16, once
-   through the kernels (``attn_impl="pallas"``) and once through the
-   einsum path (``"xla"``).  The launch counts are set to 0 just before
-   each timed forward and read just after: the kernel path must launch K1
-   16 times (one per layer) and K3 33 times (2 per layer + the final
-   norm), the plain path nothing.  A third forward takes the kernel path
-   with the plain norm, to time what K3 saves.  At every layer K1 on that
+2. prefill -- llama3.2-1b ``forward`` on 4 x 1024 tokens in bf16,
+   through the kernels (``attn_impl="pallas"``) and through the einsum
+   path (``"xla"``), each timed as the median of ``FORWARD_REPS`` calls.
+   The launch counts are set to 0 just before each timed forward and read
+   just after: the kernel path must launch K1 16 times (one per layer)
+   and K3 33 times (2 per layer + the final norm), the plain path
+   nothing.  A third path, the kernels with the plain norm, times what K3
+   saves.  At every layer K1 on that
    layer's own bf16 q, k, v is held against the plain version with the
    bf16 limit above.  The same weights drawn in float32: each layer's
    output through both paths within 2e-4 of its largest value, and top-1
@@ -83,6 +84,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -147,6 +149,8 @@ SCHED_MAIN = (2048, "grown")
 # the decision-latency sweep of the schedule phase (both solvers)
 SWEEP_SIZES = (64, 256, 1024, 2048)
 SIM_JOBS = 256
+# timed forward calls per prefill path (the median is reported)
+FORWARD_REPS = 5
 # H100 SXM float64 peak without tensor cores (NVIDIA data sheet)
 PEAK_F64 = 34e12
 
@@ -154,8 +158,9 @@ PEAK_F64 = 34e12
 def kernel_cases():
     """(B, Hq, Hkv, S, D, dtype, causal, window, model_layout, iters) of
     every case the kernel phase checks.  The first llama case takes
-    transposed (B,S,H,D) views, as ``ops.flash_attention`` passes them on
-    from ``forward``; it is the main-path row of the kernels record."""
+    transposed (B,S,H,D) views and writes a transposed (B,S,Hq,D) output,
+    as ``ops.flash_attention`` calls the kernel from ``forward``; it is
+    the main-path row of the kernels record."""
     cases = [(B, Hq, Hkv, S, D, dt, c, w, False, 10)
              for (B, Hq, Hkv, S, D) in SWEEP
              for dt in ("float32", "bfloat16") for c, w in MASKS]
@@ -326,8 +331,10 @@ def gate(out, want, dtype: str) -> dict:
 def check_case(case, gen):
     """Draw one case's inputs, run the kernel twice and its plain version
     once.  Returns (errors from ``gate`` with "deterministic": the two
-    kernel outputs are bitwise equal, (q, k, v, plain output)).
-    Model-layout cases take transposed views of (B,S,H,D) tensors."""
+    kernel outputs are bitwise equal, (q, k, v, plain output, a fresh
+    output of the case's layout or None)).  Model-layout cases take
+    transposed views of (B,S,H,D) tensors and write into a transposed
+    view of a (B,S,Hq,D) tensor, as ``ops.flash_attention`` does."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -340,15 +347,23 @@ def check_case(case, gen):
             return t.to(dt).transpose(1, 2)
         return torch.randn((B, H, S, D), generator=gen, device="cuda").to(dt)
 
+    def dest():
+        if not model_layout:
+            return None
+        return torch.empty((B, S, Hq, D), dtype=dt,
+                           device="cuda").transpose(1, 2)
+
     q, k, v = make(Hq), make(Hkv), make(Hkv)
-    out = fa.flash_attention(q, k, v, causal=causal, window=window)
-    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             out=dest())
+    again = fa.flash_attention(q, k, v, causal=causal, window=window,
+                               out=dest())
     torch.cuda.synchronize()
     want = ref.flash_attention_ref(q, k, v, causal, window)
     errs = gate(out, want, dtype)
     errs["deterministic"] = bool(torch.equal(out, again))
     errs["ok"] = errs["ok"] and errs["deterministic"]
-    return errs, (q, k, v, want)
+    return errs, (q, k, v, want, dest())
 
 
 def kernel_case(case, gen):
@@ -357,7 +372,7 @@ def kernel_case(case, gen):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     B, Hq, Hkv, S, D, dtype, causal, window, model_layout, iters = case
-    errs, (q, k, v, want) = check_case(case, gen)
+    errs, (q, k, v, want, out) = check_case(case, gen)
     if not errs["deterministic"]:
         raise RuntimeError(f"flash_attention gave two outputs for the same "
                            f"inputs at {case[:8]}")
@@ -368,7 +383,8 @@ def kernel_case(case, gen):
     lib = sdpa_call(q, k, v, causal, window)
     lib_err = float((lib().float() - want.float()).abs().max())
     ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                              window=window), iters)
+                                              window=window, out=out),
+                   iters)
     plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal,
                                                        window),
                        max(2, iters // 4))
@@ -910,18 +926,19 @@ def _layerwise(model, cfg, tokens, check) -> dict:
 
 
 def _attention_check(blk, x, positions, cfg) -> dict:
-    """K1 on a llama layer's own q, k, v (the model's score scale) against
-    its plain version, by ``gate``."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    """K1 on a llama layer's own q, k, v (the model's score scale), called
+    as ``forward`` calls it (``ops.flash_attention``, model layout in and
+    out), against its plain version, by ``gate``."""
+    from repro_torch.kernels import ops, ref
     from repro_torch.models import attention as attn
     from repro_torch.models.layers import apply_rope, rmsnorm
     win = cfg.sliding_window
     q, k, v = attn.qkv(blk, rmsnorm(x, blk.ln1, cfg.norm_eps))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=True, window=win)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    return gate(fa.flash_attention(q, k, v, causal=True, window=win),
+    return gate(out.transpose(1, 2),
                 ref.flash_attention_ref(q, k, v, True, win), cfg.dtype)
 
 
@@ -969,21 +986,27 @@ def _check_launches(phase: str, got: dict, want: dict):
 
 
 def _forward_timed(model, cfg, tokens, want: dict):
-    """One warmed-up ``forward``, timed, with every launch count set to 0
-    just before it and read just after (the main path's run when
-    ``cfg.attn_impl`` is "pallas"); the counts must equal ``want``."""
+    """``FORWARD_REPS`` warmed-up ``forward`` calls, each timed on the
+    host's clock, with every launch count set to 0 just before it and read
+    just after (the main path's runs when ``cfg.attn_impl`` is "pallas");
+    each run's counts must equal ``want``.  Returns (the last logits, the
+    median wall time, the counts, every wall time): one call's wall time
+    swings by a tenth or more with the host."""
     import torch
     from repro_torch.models.model import forward
     forward(model, cfg, {"tokens": tokens})  # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
-    zero_launches()  # the run starts here
-    t0 = time.perf_counter()
-    logits, _ = forward(model, cfg, {"tokens": tokens})
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches()  # ... and ends here
-    _check_launches(f"{cfg.name} forward ({cfg.attn_impl})", launches, want)
-    return logits, wall, launches
+    walls = []
+    for _ in range(FORWARD_REPS):
+        zero_launches()  # the run starts here
+        t0 = time.perf_counter()
+        logits, _ = forward(model, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = read_launches()  # ... and ends here
+        _check_launches(f"{cfg.name} forward ({cfg.attn_impl})", launches,
+                        want)
+    return logits, statistics.median(walls), launches, walls
 
 
 def _check_logits(name, lg, shape):
@@ -1059,13 +1082,13 @@ def phase_prefill(seed: int, arch: str):
         f"{spec['kernel']} {base.n_layers} times (one per layer) and "
         f"rmsnorm {norms} times ({NORMS_PER_BLOCK} per layer + the final "
         f"norm) per forward; the plain path none")
-    logits_k, wall_k, launches = _forward_timed(
+    logits_k, wall_k, launches, walls_k = _forward_timed(
         model, cfg_k, tokens,
         {**none, spec["kernel"]: base.n_layers, "rmsnorm": norms})
-    logits_x, wall_x, _ = _forward_timed(model, cfg_x, tokens, none)
+    logits_x, wall_x, _, _ = _forward_timed(model, cfg_x, tokens, none)
     # the kernel path with the plain norm in place of K3: what K3 saves
     with mock.patch.object(blocks, "norm_fn", lambda cfg: plain_norm):
-        _, wall_p, _ = _forward_timed(model, cfg_k, tokens,
+        _, wall_p, _, _ = _forward_timed(model, cfg_k, tokens,
                                       {**none, spec["kernel"]: base.n_layers})
     for name, lg in (("bf16 pallas", logits_k), ("bf16 xla", logits_x)):
         _check_logits(name, lg, (*tokens.shape, base.vocab_size))
@@ -1075,7 +1098,8 @@ def phase_prefill(seed: int, arch: str):
                bf16_top1_agreement=_top1(logits_k, logits_x),
                bf16_pallas_tok_per_s=B * S / wall_k,
                bf16_xla_tok_per_s=B * S / wall_x,
-               bf16_pallas_wall_s=wall_k, bf16_xla_wall_s=wall_x,
+               bf16_pallas_wall_s=wall_k, bf16_pallas_wall_s_runs=walls_k,
+               bf16_xla_wall_s=wall_x,
                bf16_pallas_plain_norm_wall_s=wall_p,
                rmsnorm=_norm_times(model, B * S, base.d_model))
     log(f"[prefill] {arch}: launches per kernel-path forward {launches}")

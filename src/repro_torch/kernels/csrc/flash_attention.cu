@@ -754,19 +754,15 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled of libcuda, found at run time so that the
-// library links against the runtime only.
+// library links against the runtime only (the call is in CUDA 12.5 and
+// later; the kernels are built with 12.9).
 EncodeTiled encoder() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
     cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
                                                        cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
     if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
       fn = reinterpret_cast<EncodeTiled>(p);
   }
