@@ -27,14 +27,21 @@ exits non-zero.
    yardstick only; the port never calls it).
    K2: the sweep of the JAX package's rwkv6 tests in float32 and bfloat16,
    the rwkv6-7b prefill shape with random S_0, ragged S=1000, decays near
-   1 (a long memory) and two chained halves against one scan (1e-4).  In
-   the bfloat16 cases w stays float32, as the model passes it.  The final
-   state is held to the JAX test's 5e-2.  No PyTorch call computes WKV6.
+   1 (a long memory), two chained halves against one scan (1e-4), S=17,
+   w = 0.01 over a whole chunk (its decay underflows) and D = 16 and 128.
+   In the bfloat16 cases w stays float32, as the model passes it.  The
+   final state is held to the JAX test's 5e-2 and to 1e-4 of its largest
+   value.  Every case runs twice and the two results must be bitwise
+   equal.  No PyTorch call computes WKV6.
    K3: the llama and rwkv6 prefill norms (4096 x 2048 and 4096 x 4096),
    a ragged 1000 x 1600, strided and unaligned row views, small rows
-   where eps matters and float32 rows of 4096; float32 within 1e-5 (the
-   JAX property test), bf16 within one bf16 ulp (2**-7) of each row's
-   largest value; timed beside ``F.rms_norm`` (a yardstick only).
+   where eps matters, float32 rows of 4096 and row counts that are not a
+   multiple of a block's rows; float32 within 1e-5 (the JAX property
+   test), bf16 within one bf16 ulp (2**-7) of each row's largest value;
+   every case twice, bitwise equal; timed beside ``F.rms_norm`` (a
+   yardstick only), both on x read from device memory (copies cycled
+   past the L2 cache, as the byte bound assumes) and on one x back to
+   back ("warm", x in L2).
    K4, K5: the host tables of the first K4 launch and of a K5 launch over
    the whole greedy order of the fig5 round (n = 256, 1024, 2048; grown
    cluster and bursty 3-pod topology): every result bitwise equal to the
@@ -130,7 +137,8 @@ RMS_BF16_ULP = 2.0 ** -7
 # tensor (16-byte aligned, the vector path); "unaligned" the same at an
 # odd column offset (the element path); "small" rows of magnitude 1e-3,
 # where eps is not negligible; "wide" float32 rows of rwkv6's 4096, the
-# width of the smoke's float32 rwkv6 model.
+# width of the smoke's float32 rwkv6 model; "tail" a row count that is
+# not a multiple of the rows a block of the register form walks.
 RMS_CASES = [(4096, 2048, "bfloat16", "bfloat16", "main", 50),
              (4096, 4096, "bfloat16", "bfloat16", "rwkv", 50),
              (4096, 2048, "float32", "float32", "main", 20),
@@ -139,7 +147,9 @@ RMS_CASES = [(4096, 2048, "bfloat16", "bfloat16", "main", 50),
              (4096, 2048, "bfloat16", "bfloat16", "strided", 20),
              (1000, 2048, "float32", "float32", "unaligned", 20),
              (1000, 2048, "float32", "float32", "small", 20),
-             (1000, 4096, "float32", "float32", "wide", 20)]
+             (1000, 4096, "float32", "float32", "wide", 20),
+             (4097, 2048, "bfloat16", "bfloat16", "tail", 20),
+             (1001, 4096, "float32", "float32", "tail", 20)]
 # K4/K5: the fig5 scalability shape (benchmarks/fig5_scalability.py):
 # philly_trace(n, seed=1) on grown_cluster(n) at t=0, and the bursty
 # arrivals on a 3-pod multi_cluster with a quarter of mixed nodes after the
@@ -153,6 +163,8 @@ SIM_JOBS = 256
 FORWARD_REPS = 5
 # H100 SXM float64 peak without tensor cores (NVIDIA data sheet)
 PEAK_F64 = 34e12
+# H100 L2 cache, bytes (NVIDIA data sheet)
+L2_BYTES = 50e6
 
 
 def kernel_cases():
@@ -182,13 +194,20 @@ def rwkv_cases():
     transposed (B,S,H,D) views as ``ops.rwkv6_scan`` passes them from
     ``forward`` (the main-path row of the kernels record); "ragged" S=1000;
     "long" decays in (0.951, 0.99988), the long memory of trained rwkv6
-    layers; "chain" two halves with the carried state against one scan."""
+    layers; "chain" two halves with the carried state against one scan;
+    "short" S=17, shorter than one staged chunk; "underflow" w = 0.01 over
+    steps 32-95, a whole chunk whose decay product underflows to 0; "d16"
+    and "d128" the smallest and largest head dims, at ragged lengths."""
     cases = [(B, H, S, D, dt, "sweep", 10) for (B, H, S, D) in RWKV_SWEEP
              for dt in ("float32", "bfloat16")]
     cases += [RWKV_MAIN + ("bfloat16", "main", 20),
               (1, 64, 1000, 64, "bfloat16", "ragged", 10),
               (2, 16, 1024, 64, "bfloat16", "long", 10),
-              (2, 8, 512, 64, "float32", "chain", 10)]
+              (2, 8, 512, 64, "float32", "chain", 10),
+              (2, 4, 17, 64, "bfloat16", "short", 10),
+              (1, 8, 160, 64, "float32", "underflow", 10),
+              (2, 4, 100, 16, "float32", "d16", 10),
+              (1, 8, 200, 128, "bfloat16", "d128", 10)]
     return cases
 
 
@@ -253,6 +272,29 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
         hold *= 4
     raise RuntimeError("device_ms: the host could not enqueue the calls "
                        "within the hold")
+
+
+def cold_copies(x, per_call_bytes: float) -> list:
+    """Copies of ``x`` (same sizes, strides and storage offset), enough
+    that cycling through them moves three L2 caches' worth of bytes
+    (``per_call_bytes`` a call) before a copy comes round again: each
+    call then reads its input from device memory, as the byte bound
+    assumes, and not from L2, where back-to-back calls on one input find
+    it."""
+    import math
+    import torch
+    n = max(2, math.ceil(3 * L2_BYTES / per_call_bytes))
+    whole = torch.as_strided(x, (x.untyped_storage().nbytes()
+                                 // x.element_size(),), (1,), 0)
+    return [torch.as_strided(whole.clone(), x.size(), x.stride(),
+                             x.storage_offset()) for _ in range(n)]
+
+
+def cycled(fns: list):
+    """One call that calls the next of ``fns`` in turn."""
+    import itertools
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
 
 
 def attention_bound(B, Hq, Hkv, S, D, causal, window, dtype):
@@ -428,6 +470,8 @@ def rwkv_inputs(case, gen):
         w = torch.exp(-torch.exp(x))
     else:
         w = torch.sigmoid(normal(shape) - 1) * 0.98 + 0.01
+    if kind == "underflow":  # 0.01 ** 32 = 1e-64: below float32's range
+        w[:, :, 32:96] = 0.01
     return (r, k, v, seq(w), normal((H, D), 0.3).to(dt),
             normal((B, H, D, D), 0.2))
 
@@ -443,16 +487,20 @@ def state_gate(errs: dict, s, want_s) -> dict:
 
 
 def rwkv_check_case(case, gen):
-    """Draw one K2 case's inputs and run the kernel: against its plain
-    version (output by ``gate``, final state by ``state_gate``), or for a
-    "chain" case its two halves against its one scan (CHAIN_TOL).  Returns
-    (errors, inputs)."""
+    """Draw one K2 case's inputs and run the kernel twice: against its
+    plain version (output by ``gate``, final state by ``state_gate``), or
+    for a "chain" case its two halves against its one scan (CHAIN_TOL).
+    "deterministic": the two runs' outputs and states are bitwise equal.
+    Returns (errors, inputs)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as rk
     dtype, kind = case[4], case[5]
     args = rwkv_inputs(case, gen)
     out, s = rk.rwkv6_scan(*args)
+    out2, s2 = rk.rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out, out2) and torch.equal(s, s2))
     if kind == "chain":
         r, k, v, w, u, s0 = args
         h = r.shape[2] // 2
@@ -465,12 +513,14 @@ def rwkv_check_case(case, gen):
         errs.update(gated_on="max_abs_err", tol=CHAIN_TOL,
                     state_abs_err=state_err,
                     state_rel_err=state_err / float(s.abs().max()),
+                    deterministic=same,
                     ok=errs["max_abs_err"] < CHAIN_TOL
-                    and state_err < CHAIN_TOL)
+                    and state_err < CHAIN_TOL and same)
         return errs, args
-    torch.cuda.synchronize()
     want, want_s = ref.rwkv6_scan_ref(*args)
-    return state_gate(gate(out, want, dtype), s, want_s), args
+    errs = state_gate(gate(out, want, dtype), s, want_s)
+    errs.update(deterministic=same, ok=errs["ok"] and same)
+    return errs, args
 
 
 def rwkv_bound(r, w, u):
@@ -495,6 +545,9 @@ def rwkv_case(case, gen):
     from repro_torch.kernels import rwkv6_scan as rk
     B, H, S, D, dtype, kind, iters = case
     errs, args = rwkv_check_case(case, gen)
+    if not errs["deterministic"]:
+        raise RuntimeError(f"rwkv6_scan gave two results for the same "
+                           f"inputs at {case[:6]}")
     if not errs["ok"]:
         raise RuntimeError(
             f"rwkv6_scan disagrees at {case[:6]}: {errs['gated_on']} "
@@ -544,14 +597,17 @@ def rms_inputs(case, gen):
 
 
 def rms_check_case(case, gen):
-    """Draw one K3 case's inputs and run the kernel against its plain
-    version.  Returns (errors, (x, scale, plain output))."""
+    """Draw one K3 case's inputs and run the kernel twice against its
+    plain version; "deterministic": the two outputs are bitwise equal.
+    Returns (errors, (x, scale, plain output))."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rk
     x, scale = rms_inputs(case, gen)
     out = rk.rmsnorm(x, scale, 1e-5)
+    again = rk.rmsnorm(x, scale, 1e-5)
     torch.cuda.synchronize()
+    same = bool(torch.equal(out, again))
     want = ref.rmsnorm_ref(x, scale, 1e-5)
     abs_err = float((out.float() - want.float()).abs().max())
     rel_err = row_rel_err(out, want)
@@ -562,7 +618,8 @@ def rms_check_case(case, gen):
         errs = {"gated_on": "max_rel_err", "tol": RMS_BF16_ULP,
                 "ok": rel_err <= RMS_BF16_ULP}
     errs.update(max_abs_err=abs_err, max_rel_err=rel_err,
-                ok=errs["ok"] and out.dtype == x.dtype
+                deterministic=same,
+                ok=errs["ok"] and same and out.dtype == x.dtype
                 and tuple(out.shape) == tuple(x.shape))
     return errs, (x, scale, want)
 
@@ -578,36 +635,49 @@ def rms_library(x, scale):
 
 def rms_case(case, gen):
     """One K3 case: check (raises if over the limit), then time the
-    kernel, the plain version and ``F.rms_norm``."""
+    kernel, the plain version and ``F.rms_norm``.  ``ms`` and
+    ``library_ms`` read x from device memory (``cold_copies``); the
+    ``warm_`` times call on one x back to back, so x is in L2."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rk
     rows, D, dtype, sdtype, kind, iters = case
     errs, (x, scale, want) = rms_check_case(case, gen)
+    if not errs["deterministic"]:
+        raise RuntimeError(f"rmsnorm gave two outputs for the same inputs "
+                           f"at {case[:5]}")
     if not errs["ok"]:
         raise RuntimeError(f"rmsnorm disagrees with its plain version at "
                            f"{case[:5]}: {errs['gated_on']} "
                            f"{errs[errs['gated_on']]} (limit {errs['tol']})")
-    ms = device_ms(lambda: rk.rmsnorm(x, scale, 1e-5), iters)
-    plain_ms = cuda_ms(lambda: ref.rmsnorm_ref(x, scale, 1e-5), iters)
-    lib = rms_library(x, scale)
-    library_ms = lib_err = None
-    if lib is not None:
-        library_ms = device_ms(lib, iters)
-        lib_err = float((lib().float() - want.float()).abs().max())
     nbytes = (2 * rows * D * x.element_size()
               + D * scale.element_size())
+    xs = cold_copies(x, nbytes)
+    ms = device_ms(cycled([lambda c=c: rk.rmsnorm(c, scale, 1e-5)
+                           for c in xs]), iters)
+    warm_ms = device_ms(lambda: rk.rmsnorm(x, scale, 1e-5), iters)
+    plain_ms = cuda_ms(lambda: ref.rmsnorm_ref(x, scale, 1e-5), iters)
+    lib = rms_library(x, scale)
+    library_ms = library_warm_ms = lib_err = None
+    if lib is not None:
+        library_ms = device_ms(cycled([rms_library(c, scale) for c in xs]),
+                               iters)
+        library_warm_ms = device_ms(lib, iters)
+        lib_err = float((lib().float() - want.float()).abs().max())
     flops = 4 * rows * D
     t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
     row = {"shape": [rows, D], "dtype": dtype, "scale_dtype": sdtype,
-           "kind": kind, **errs, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "library_max_abs_err": lib_err,
+           "kind": kind, **errs, "ms": ms, "warm_ms": warm_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_warm_ms": library_warm_ms,
+           "library_max_abs_err": lib_err,
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "bytes": nbytes, "flops": flops}
     log(f"[kernel] rmsnorm {rows}x{D} {dtype:8s} scale {sdtype:8s} "
         f"{kind:9s} abs_err={errs['max_abs_err']:.3g} "
-        f"row_rel_err={errs['max_rel_err']:.3g} kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms={library_ms} "
+        f"row_rel_err={errs['max_rel_err']:.3g} kernel_ms={ms:.5f} "
+        f"(warm {warm_ms:.5f}) plain_ms={plain_ms:.4f} library_ms="
+        f"{library_ms} (warm {library_warm_ms}) "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
     return row
 

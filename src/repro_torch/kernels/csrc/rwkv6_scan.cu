@@ -7,31 +7,39 @@
 //   o_t = r_t (diag(u) k_t^T v_t + S_{t-1}),   S_t = diag(w_t) S_{t-1} + k_t^T v_t,
 // returning o (in r's dtype) and S_T (f32).  All math is f32.
 //
-// Design.  The TPU kernel cuts the sequence into chunks of 32 and carries the
-// state across a sequential grid axis in VMEM scratch, with the intra-chunk
-// part as (C,C) matrix products.  CUDA blocks run in no order, so here one
-// block owns one (batch, head) and walks the sequence in a loop: thread j
-// keeps column j of the state (D floats) in registers for the whole scan.
-// Every CH steps the block stages r, k, w, v and the bonus terms r*u*k of
-// those steps in shared memory (coalesced rows, one barrier pair per CH
-// steps); then each thread runs the CH steps alone, reading the staged rows
-// as broadcasts.  The sequence is not padded: a ragged S shortens the last
-// chunk, which matches the TPU wrapper's padding with w = 1 exactly.
-// Inputs are read through (batch, head, seq) strides with the last dim
-// contiguous, so the model's (B,S,H,D) tensors are read in place.  bf16 is
-// converted only through the intrinsics.
+// Design (the recurrent form).  The TPU kernel cuts the sequence into chunks
+// of 32 and carries the state across a sequential grid axis in VMEM scratch.
+// CUDA blocks run in no order, so a block walks the sequence in a loop with
+// the state in registers.  Value columns are independent (S[:, j] depends
+// only on v[:, j]), so a block owns JT value columns of one (batch, head) and
+// the D / JT tiles of a head run side by side (their re-reads of r, k and w
+// hit L2).  Each column is split over P = 4 lanes: lane p keeps the D / 4
+// keys i of the 16-byte groups q * 4 + p, so a step is D / 4 independent
+// state updates and a chain of D / 16 FMAs a lane, and o_t is summed over
+// the 4 lanes by two shuffles.  At D = 64 a block is 256 threads, one per
+// (column, lane), 256 blocks in all.  The block stages CH steps of r, k, w,
+// v (f32, converted once) in shared memory, double-buffered: the next
+// chunk's 16-byte loads are issued into registers before the current chunk
+// runs and stored after it.  The bonus sum_i r_i u_i k_i of each staged step
+// is reduced by one warp, once for the block; outputs go through shared
+// memory and leave as 16-byte rows.  The sequence is not padded: a ragged S
+// shortens the last chunk, which matches the TPU wrapper's padding with
+// w = 1 exactly.  Inputs are read through (batch, head, seq) strides with
+// the last dim contiguous, so the model's (B,S,H,D) tensors are read in
+// place; unaligned views take element loads.  bf16 is converted only
+// through the intrinsics.
 //
 // Bound.  At the rwkv6-7b prefill shape (B=4, H=64, S=1024, D=64, r/k/v bf16,
 // w f32) the function moves 3*33.6 MB of r, k, v, 67.1 MB of w, 33.6 MB of o
 // and 2*4.2 MB of S_0 and S_T, 209.7 MB in all: 0.063 ms at 3.35 TB/s.  It does
 // 5 D^2 + 5 D flops per (b, h, t) (k^T v, the decayed update, r S, and the
 // bonus), 5.4 GFLOP: 0.080 ms at 67 TFLOP/s of f32 CUDA cores.  So the bound
-// is 0.080 ms, by operations.  This simple form runs 256 blocks of 64 threads
-// (two warps a block, about two blocks an SM), and each step is a chain of
-// D/4 dependent FMAs per accumulator: it is latency-bound, several times the
-// bound.  A chunked tensor-core form is later work.
+// is 0.080 ms, by operations; a step is 3 instructions an element (FMUL,
+// FFMA, FFMA) plus the shared-memory reads.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
+#include <string.h>
 #include <type_traits>
 
 namespace {
@@ -52,82 +60,241 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// floats of one staged array: CH = STAGE / D steps at once, five arrays,
-// 40 KB of static shared memory
-constexpr int STAGE = 2048;
+// keys a warp keeps: warp g of a block owns keys NK g .. NK g + NK - 1
+#ifndef WKV6_NK
+#define WKV6_NK 8
+#endif
+constexpr int NK = WKV6_NK;
+#ifndef WKV6_JT
+#define WKV6_JT 64
+#endif
 
-// T: r, k, v and o; TW: w; TU: u.
-template <int D, typename T, typename TW, typename TU>
-__global__ void __launch_bounds__(D)
+template <int D>
+struct Plan {
+  static constexpr int JT = D < WKV6_JT ? D : WKV6_JT;  // value columns a block
+  static constexpr int NC = JT > 32 ? JT / 32 : 1;       // value columns a lane
+  static constexpr int G = D / NK;                       // warps a block
+  static constexpr int NT = 32 * G;                      // threads a block
+  static constexpr int CH = 16;                          // steps a chunk
+  // floats of one staging buffer: r, k, w [CH][D], v [CH][JT], bonus [CH]
+  static constexpr int BUF = 3 * CH * D + CH * JT + CH;
+  // dynamic shared memory: two buffers, the partial outputs [G][CH][JT],
+  // u [D]
+  static constexpr int SMEM = (2 * BUF + G * CH * JT + D) * 4;
+  static_assert(D % NK == 0 && JT % 16 == 0 && NC * 32 >= JT, "plan");
+};
+
+// N elements of T loaded as one 16-byte vector (VEC) or one element
+template <typename T, bool VEC>
+struct Pack {
+  static constexpr int N = VEC ? 16 / sizeof(T) : 1;
+  T v[N];
+};
+
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_pack(Pack<T, VEC>& d, const T* p) {
+  if constexpr (VEC) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    memcpy(d.v, &u, 16);
+  } else {
+    d.v[0] = *p;
+  }
+}
+
+// CH steps of COLS columns of one input, prefetched into registers by the
+// whole block and then stored as f32 rows of shared memory
+template <typename T, bool VEC, int COLS, int CH, int NT>
+struct Stage {
+  static constexpr int N = Pack<T, VEC>::N;
+  static constexpr int ROW = COLS / N;          // packs a step
+  static constexpr int TOTAL = CH * ROW;        // packs a chunk
+  static constexpr int NL = (TOTAL + NT - 1) / NT;
+  Pack<T, VEC> q[NL];
+
+  // steps t0 .. t0 + n - 1 of a (batch, head) whose step 0 is at base
+  __device__ __forceinline__ void load(const T* base, long long ss, int t0, int n) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const int idx = threadIdx.x + l * NT, c = idx / ROW;
+      if (idx < TOTAL && c < n) load_pack(q[l], base + (t0 + c) * ss + (idx % ROW) * N);
+    }
+  }
+  // dst: [CH][COLS]; the rows past n are not read
+  __device__ __forceinline__ void store(float* dst) const {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const int idx = threadIdx.x + l * NT;
+      if (idx < TOTAL) {
+#pragma unroll
+        for (int e = 0; e < N; ++e) dst[idx * N + e] = to_f32(q[l].v[e]);
+      }
+    }
+  }
+};
+
+// T: r, k, v and o; TW: w; TU: u.  VEC: 16-byte loads and stores.
+template <int D, typename T, typename TW, typename TU, bool VEC>
+__global__ void __launch_bounds__(Plan<D>::NT)
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
             const TW* __restrict__ w, const TU* __restrict__ u,
             const float* __restrict__ s0, T* __restrict__ o, float* __restrict__ sT,
             Strides rs, Strides ks, Strides vs, Strides ws, Strides os, long long u_sh, int H,
             int S) {
-  constexpr int CH = STAGE / D;
-  __shared__ __align__(16) float r_s[CH * D];
-  __shared__ __align__(16) float k_s[CH * D];
-  __shared__ __align__(16) float w_s[CH * D];
-  __shared__ __align__(16) float b_s[CH * D];  // r * u * k, summed into the bonus
-  __shared__ __align__(16) float v_s[CH * D];
+  using PL = Plan<D>;
+  constexpr int JT = PL::JT, NC = PL::NC, G = PL::G, NT = PL::NT, CH = PL::CH;
+  extern __shared__ __align__(16) float smem[];
+  float* const part = smem + 2 * PL::BUF;  // [G][CH][JT]: r S over each warp's keys
+  float* const u_s = part + G * CH * JT;   // [D]
 
-  const int j = threadIdx.x;  // this thread's value column
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int g = tid / 32, lane = tid % 32;  // this warp's keys, this lane's columns
+  const int j0 = blockIdx.x * JT, h = blockIdx.y, b = blockIdx.z;
   const T* rb = r + b * rs.b + h * rs.h;
   const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
+  const T* vb = v + b * vs.b + h * vs.h + j0;
   const TW* wb = w + b * ws.b + h * ws.h;
-  T* ob = o + b * os.b + h * os.h;
-  const long long sbase = (static_cast<long long>(b) * H + h) * D * D;
-  const float uj = to_f32(u[h * u_sh + j]);
+  T* ob = o + b * os.b + h * os.h + j0;
+  const long long sbase = (static_cast<long long>(b) * H + h) * D * D + j0;
 
-  float st[D];  // st[i] = S[i][j]
+  // column n of this lane is jj[n]; lanes past JT (D = 16) idle on column 0
+  int jj[NC];
+  bool live[NC];
 #pragma unroll
-  for (int i = 0; i < D; ++i) st[i] = s0[sbase + i * D + j];
+  for (int n = 0; n < NC; ++n) {
+    live[n] = lane + 32 * n < JT;
+    jj[n] = live[n] ? lane + 32 * n : 0;
+  }
 
-  for (int t0 = 0; t0 < S; t0 += CH) {
+  for (int i = tid; i < D; i += NT) u_s[i] = to_f32(u[h * u_sh + i]);
+  float st[NC][NK];  // st[n][i] = S[NK g + i][j0 + jj[n]]
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int i = 0; i < NK; ++i) st[n][i] = s0[sbase + (NK * g + i) * D + jj[n]];
+
+  Stage<T, VEC, D, CH, NT> rq, kq;
+  Stage<TW, VEC, D, CH, NT> wq;
+  Stage<T, VEC, JT, CH, NT> vq;
+  auto load = [&](int t0) {
     const int n = min(CH, S - t0);
-    __syncthreads();  // the previous chunk's rows are no longer read
-    for (int c = 0; c < n; ++c) {  // thread j stages element j of each step
-      const long long t = t0 + c;
-      const float rv = to_f32(rb[t * rs.s + j]);
-      const float kv = to_f32(kb[t * ks.s + j]);
-      r_s[c * D + j] = rv;
-      k_s[c * D + j] = kv;
-      b_s[c * D + j] = rv * uj * kv;
-      w_s[c * D + j] = to_f32(wb[t * ws.s + j]);
-      v_s[c * D + j] = to_f32(vb[t * vs.s + j]);
+    rq.load(rb, rs.s, t0, n);
+    kq.load(kb, ks.s, t0, n);
+    wq.load(wb, ws.s, t0, n);
+    vq.load(vb, vs.s, t0, n);
+  };
+  auto store = [&](float* buf) {
+    rq.store(buf);
+    kq.store(buf + CH * D);
+    wq.store(buf + 2 * CH * D);
+    vq.store(buf + 3 * CH * D);
+  };
+  // bonus[c] = sum_i r_i u_i k_i of each staged step, one warp a step
+  auto bonus = [&](float* buf, int n) {
+    for (int c = g; c < n; c += G) {
+      float s = 0.f;
+      for (int i = lane; i < D; i += 32)
+        s = fmaf(buf[c * D + i] * u_s[i], buf[CH * D + c * D + i], s);
+      for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) buf[3 * CH * D + CH * JT + c] = s;
     }
-    __syncthreads();
+  };
 
+  load(0);
+  store(smem);
+  __syncthreads();
+  bonus(smem, min(CH, S));
+  __syncthreads();
+  for (int t0 = 0, chunk = 0; t0 < S; t0 += CH, ++chunk) {
+    float* const buf = smem + (chunk & 1) * PL::BUF;
+    float* const nbuf = smem + ((chunk + 1) & 1) * PL::BUF;
+    const int n = min(CH, S - t0);
+    const bool more = t0 + CH < S;
+    if (more) load(t0 + CH);  // in flight while this chunk runs
+
+    const float* r_s = buf;
+    const float* k_s = buf + CH * D;
+    const float* w_s = buf + 2 * CH * D;
+    const float* v_s = buf + 3 * CH * D;
+    const float* b_s = v_s + CH * JT;
+    // step c's r, k, w over this warp's keys (the same 16 bytes for the
+    // whole warp: broadcasts) and v over this lane's columns; step c + 1's
+    // are read while step c runs
+    float4 r4[NK / 4], k4[NK / 4], w4[NK / 4], r4n[NK / 4], k4n[NK / 4], w4n[NK / 4];
+    float vj[NC], vjn[NC];
+    auto fetch = [&](int c, float4* rq4, float4* kq4, float4* wq4, float* vq) {
+#pragma unroll
+      for (int q = 0; q < NK / 4; ++q) {
+        const int i = c * D + NK * g + 4 * q;
+        rq4[q] = *reinterpret_cast<const float4*>(&r_s[i]);
+        kq4[q] = *reinterpret_cast<const float4*>(&k_s[i]);
+        wq4[q] = *reinterpret_cast<const float4*>(&w_s[i]);
+      }
+#pragma unroll
+      for (int m = 0; m < NC; ++m) vq[m] = v_s[c * JT + jj[m]];
+    };
+    fetch(0, r4, k4, w4, vj);
     for (int c = 0; c < n; ++c) {
-      const float vj = v_s[c * D + j];
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      float bon[4] = {0.f, 0.f, 0.f, 0.f};
+      if (c + 1 < n) fetch(c + 1, r4n, k4n, w4n, vjn);
+      float acc[NC][4] = {};
 #pragma unroll
-      for (int i = 0; i < D; i += 4) {
-        const float4 r4 = *reinterpret_cast<const float4*>(&r_s[c * D + i]);
-        const float4 k4 = *reinterpret_cast<const float4*>(&k_s[c * D + i]);
-        const float4 w4 = *reinterpret_cast<const float4*>(&w_s[c * D + i]);
-        const float4 b4 = *reinterpret_cast<const float4*>(&b_s[c * D + i]);
-        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
-        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
-        const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
-        const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+      for (int q = 0; q < NK / 4; ++q) {
+        const float rr[4] = {r4[q].x, r4[q].y, r4[q].z, r4[q].w};
+        const float kk[4] = {k4[q].x, k4[q].y, k4[q].z, k4[q].w};
+        const float ww[4] = {w4[q].x, w4[q].y, w4[q].z, w4[q].w};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[e] = fmaf(rr[e], st[i + e], acc[e]);  // o_t reads S_{t-1}
-          bon[e] += bb[e];
-          st[i + e] = fmaf(ww[e], st[i + e], kk[e] * vj);  // S_t
+        for (int m = 0; m < NC; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[m][e] = fmaf(rr[e], st[m][4 * q + e], acc[m][e]);  // o_t reads S_{t-1}
+            st[m][4 * q + e] = fmaf(ww[e], st[m][4 * q + e], kk[e] * vj[m]);  // S_t
+          }
+      }
+#pragma unroll
+      for (int m = 0; m < NC; ++m)
+        if (live[m])
+          part[(g * CH + c) * JT + jj[m]] = (acc[m][0] + acc[m][1]) + (acc[m][2] + acc[m][3]);
+#pragma unroll
+      for (int q = 0; q < NK / 4; ++q) {
+        r4[q] = r4n[q];
+        k4[q] = k4n[q];
+        w4[q] = w4n[q];
+      }
+#pragma unroll
+      for (int m = 0; m < NC; ++m) vj[m] = vjn[m];
+    }
+    if (more) store(nbuf);
+    __syncthreads();  // the partial outputs are complete; the next chunk is staged
+    {
+      // o = sum over the warps' keys of r S, plus v * bonus, as 16-byte rows
+      constexpr int N = Pack<T, VEC>::N, ROW = JT / N;
+      for (int idx = tid; idx < n * ROW; idx += NT) {
+        const int c = idx / ROW, col = (idx % ROW) * N;
+        Pack<T, VEC> pk;
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          float out = 0.f;
+#pragma unroll
+          for (int gg = 0; gg < G; ++gg) out += part[(gg * CH + c) * JT + col + e];
+          pk.v[e] = from_f32<T>(fmaf(v_s[c * JT + col + e], b_s[c], out));
+        }
+        T* dst = ob + (t0 + c) * os.s + col;
+        if constexpr (VEC) {
+          uint4 u4;
+          memcpy(&u4, pk.v, 16);
+          *reinterpret_cast<uint4*>(dst) = u4;
+        } else {
+          *dst = pk.v[0];
         }
       }
-      const float bonus = (bon[0] + bon[1]) + (bon[2] + bon[3]);
-      const float out = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-      ob[(t0 + c) * os.s + j] = from_f32<T>(fmaf(vj, bonus, out));
     }
+    if (more) bonus(nbuf, min(CH, S - t0 - CH));
+    __syncthreads();  // the partials are free; the next chunk's bonus is ready
   }
 #pragma unroll
-  for (int i = 0; i < D; ++i) sT[sbase + i * D + j] = st[i];
+  for (int n = 0; n < NC; ++n)
+    if (live[n])
+#pragma unroll
+      for (int i = 0; i < NK; ++i) sT[sbase + (NK * g + i) * D + jj[n]] = st[n][i];
 }
 
 // ---------------------------------------------------------------------------
@@ -144,15 +311,33 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, typename T, typename TW, typename TU>
-cudaError_t launch_typed(const Args& a) {
-  dim3 grid(a.H, a.B);
-  wkv6_kernel<D, T, TW, TU><<<grid, D, 0, a.stream>>>(
+bool aligned16(const void* p, const Strides& s, size_t elem) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (s.b * elem) % 16 == 0 &&
+         (s.h * elem) % 16 == 0 && (s.s * elem) % 16 == 0;
+}
+
+template <int D, typename T, typename TW, typename TU, bool VEC>
+cudaError_t launch_kernel(const Args& a) {
+  using PL = Plan<D>;
+  auto kern = wkv6_kernel<D, T, TW, TU, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         PL::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(D / PL::JT, a.H, a.B);
+  kern<<<grid, PL::NT, PL::SMEM, a.stream>>>(
       static_cast<const T*>(a.r), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const TW*>(a.w), static_cast<const TU*>(a.u),
       static_cast<const float*>(a.s0), static_cast<T*>(a.o), static_cast<float*>(a.sT), a.rs,
       a.ks, a.vs, a.ws, a.os, a.u_sh, a.H, a.S);
   return cudaGetLastError();
+}
+
+template <int D, typename T, typename TW, typename TU>
+cudaError_t launch_typed(const Args& a) {
+  const bool vec = aligned16(a.r, a.rs, sizeof(T)) && aligned16(a.k, a.ks, sizeof(T)) &&
+                   aligned16(a.v, a.vs, sizeof(T)) && aligned16(a.w, a.ws, sizeof(TW)) &&
+                   aligned16(a.o, a.os, sizeof(T));
+  return vec ? launch_kernel<D, T, TW, TU, true>(a) : launch_kernel<D, T, TW, TU, false>(a);
 }
 
 template <int D, typename T, typename TW>
@@ -194,7 +379,7 @@ extern "C" int rwkv6_scan_fwd(const void* r, const void* k, const void* v, const
                               long long w_sb, long long w_sh, long long w_ss,
                               long long o_sb, long long o_sh, long long o_ss, long long u_sh,
                               void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return int(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
   const Args a{r, k, v, w, u, s0, o, sT, w_dtype, u_dtype, B, H, S,
                {r_sb, r_sh, r_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
                {w_sb, w_sh, w_ss}, {o_sb, o_sh, o_ss}, u_sh,
