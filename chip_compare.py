@@ -170,7 +170,8 @@ def main(argv=None) -> int:
                     f"{n} {r['median_ms']:.5f}" for n, r in row.items()),
                     flush=True)
         report["ptxas"] = {f"{k}-{n}": [ln for ln in log.splitlines()
-                                        if "registers" in ln or "spill" in ln]
+                                        if "registers" in ln or "spill" in ln
+                                        or "entry function" in ln]
                            for (k, n), log in logs.items()}
     if args.out:
         out = Path(args.out)

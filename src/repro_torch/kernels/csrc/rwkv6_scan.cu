@@ -40,6 +40,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <string.h>
+#include <stdio.h>
 #include <type_traits>
 
 namespace {
@@ -62,8 +63,15 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 // keys a warp keeps: warp g of a block owns keys NK g .. NK g + NK - 1
 #ifndef WKV6_NK
-#define WKV6_NK 8
+#define WKV6_NK 16
 #endif
+#ifndef WKV6_MINB
+#define WKV6_MINB 1
+#endif
+#ifndef WKV6_UNROLL
+#define WKV6_UNROLL 4
+#endif
+constexpr int STEP_UNROLL = WKV6_UNROLL;
 constexpr int NK = WKV6_NK;
 #ifndef WKV6_JT
 #define WKV6_JT 64
@@ -81,6 +89,7 @@ struct Plan {
   // dynamic shared memory: two buffers, the partial outputs [G][CH][JT],
   // u [D]
   static constexpr int SMEM = (2 * BUF + G * CH * JT + D) * 4;
+  static constexpr int MIN_BLOCKS = WKV6_MINB;
   static_assert(D % NK == 0 && JT % 16 == 0 && NC * 32 >= JT, "plan");
 };
 
@@ -110,23 +119,26 @@ struct Stage {
   static constexpr int TOTAL = CH * ROW;        // packs a chunk
   static constexpr int NL = (TOTAL + NT - 1) / NT;
   Pack<T, VEC> q[NL];
+  int n_;  // steps loaded
 
   // steps t0 .. t0 + n - 1 of a (batch, head) whose step 0 is at base
   __device__ __forceinline__ void load(const T* base, long long ss, int t0, int n) {
+    n_ = n;
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
       const int idx = threadIdx.x + l * NT, c = idx / ROW;
       if (idx < TOTAL && c < n) load_pack(q[l], base + (t0 + c) * ss + (idx % ROW) * N);
     }
   }
-  // dst: [CH][COLS]; the rows past n are not read
-  __device__ __forceinline__ void store(float* dst) const {
+  // dst: [CH] rows of COLS, ld apart; the rows past the steps loaded hold
+  // fill
+  __device__ __forceinline__ void store(float* dst, int ld, float fill) const {
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
-      const int idx = threadIdx.x + l * NT;
+      const int idx = threadIdx.x + l * NT, c = idx / ROW, col = (idx % ROW) * N;
       if (idx < TOTAL) {
 #pragma unroll
-        for (int e = 0; e < N; ++e) dst[idx * N + e] = to_f32(q[l].v[e]);
+        for (int e = 0; e < N; ++e) dst[c * ld + col + e] = c < n_ ? to_f32(q[l].v[e]) : fill;
       }
     }
   }
@@ -134,7 +146,7 @@ struct Stage {
 
 // T: r, k, v and o; TW: w; TU: u.  VEC: 16-byte loads and stores.
 template <int D, typename T, typename TW, typename TU, bool VEC>
-__global__ void __launch_bounds__(Plan<D>::NT)
+__global__ void __launch_bounds__(Plan<D>::NT, Plan<D>::MIN_BLOCKS)
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
             const TW* __restrict__ w, const TU* __restrict__ u,
             const float* __restrict__ s0, T* __restrict__ o, float* __restrict__ sT,
@@ -183,10 +195,10 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
     vq.load(vb, vs.s, t0, n);
   };
   auto store = [&](float* buf) {
-    rq.store(buf);
-    kq.store(buf + CH * D);
-    wq.store(buf + 2 * CH * D);
-    vq.store(buf + 3 * CH * D);
+    rq.store(buf, D, 0.f);
+    kq.store(buf + CH * D, D, 0.f);
+    wq.store(buf + 2 * CH * D, D, 0.f);
+    vq.store(buf + 3 * CH * D, JT, 0.f);
   };
   // bonus[c] = sum_i r_i u_i k_i of each staged step, one warp a step
   auto bonus = [&](float* buf, int n) {
@@ -216,31 +228,24 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
     const float* w_s = buf + 2 * CH * D;
     const float* v_s = buf + 3 * CH * D;
     const float* b_s = v_s + CH * JT;
-    // step c's r, k, w over this warp's keys (the same 16 bytes for the
-    // whole warp: broadcasts) and v over this lane's columns; step c + 1's
-    // are read while step c runs
-    float4 r4[NK / 4], k4[NK / 4], w4[NK / 4], r4n[NK / 4], k4n[NK / 4], w4n[NK / 4];
-    float vj[NC], vjn[NC];
-    auto fetch = [&](int c, float4* rq4, float4* kq4, float4* wq4, float* vq) {
-#pragma unroll
-      for (int q = 0; q < NK / 4; ++q) {
-        const int i = c * D + NK * g + 4 * q;
-        rq4[q] = *reinterpret_cast<const float4*>(&r_s[i]);
-        kq4[q] = *reinterpret_cast<const float4*>(&k_s[i]);
-        wq4[q] = *reinterpret_cast<const float4*>(&w_s[i]);
-      }
-#pragma unroll
-      for (int m = 0; m < NC; ++m) vq[m] = v_s[c * JT + jj[m]];
-    };
-    fetch(0, r4, k4, w4, vj);
+#if WKV6_UNROLL
+#pragma unroll STEP_UNROLL
+#endif
     for (int c = 0; c < n; ++c) {
-      if (c + 1 < n) fetch(c + 1, r4n, k4n, w4n, vjn);
+      float vj[NC];
+#pragma unroll
+      for (int m = 0; m < NC; ++m) vj[m] = v_s[c * JT + jj[m]];
       float acc[NC][4] = {};
 #pragma unroll
       for (int q = 0; q < NK / 4; ++q) {
-        const float rr[4] = {r4[q].x, r4[q].y, r4[q].z, r4[q].w};
-        const float kk[4] = {k4[q].x, k4[q].y, k4[q].z, k4[q].w};
-        const float ww[4] = {w4[q].x, w4[q].y, w4[q].z, w4[q].w};
+        // the same 16 bytes for the whole warp: broadcasts
+        const int i = c * D + NK * g + 4 * q;
+        const float4 r4 = *reinterpret_cast<const float4*>(&r_s[i]);
+        const float4 k4 = *reinterpret_cast<const float4*>(&k_s[i]);
+        const float4 w4 = *reinterpret_cast<const float4*>(&w_s[i]);
+        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
+        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
+        const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
         for (int m = 0; m < NC; ++m)
 #pragma unroll
@@ -253,14 +258,6 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
       for (int m = 0; m < NC; ++m)
         if (live[m])
           part[(g * CH + c) * JT + jj[m]] = (acc[m][0] + acc[m][1]) + (acc[m][2] + acc[m][3]);
-#pragma unroll
-      for (int q = 0; q < NK / 4; ++q) {
-        r4[q] = r4n[q];
-        k4[q] = k4n[q];
-        w4[q] = w4n[q];
-      }
-#pragma unroll
-      for (int m = 0; m < NC; ++m) vj[m] = vjn[m];
     }
     if (more) store(nbuf);
     __syncthreads();  // the partial outputs are complete; the next chunk is staged
@@ -298,6 +295,344 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
 }
 
 // ---------------------------------------------------------------------------
+// the chunked form: C steps at a time on tensor cores (3xTF32)
+// ---------------------------------------------------------------------------
+
+namespace chunked {
+
+constexpr int C = 16;  // steps a chunk
+#ifndef WKV6_CHUNK_MINB
+#define WKV6_CHUNK_MINB 2
+#endif
+#ifndef WKV6_PROFILE
+#define WKV6_PROFILE 0
+#endif
+#if WKV6_PROFILE
+#define PROF_MARK(i)                 \
+  if (threadIdx.x == 0) {            \
+    const long long t_ = clock64();  \
+    prof[i] += t_ - prof_t;          \
+    prof_t = t_;                     \
+  }
+#else
+#define PROF_MARK(i)
+#endif
+
+template <int D>
+struct Plan {
+  static constexpr int W = D / 16;      // warps: warp w owns state rows and output
+                                        // columns 16 w .. 16 w + 15
+  static constexpr int NT = 32 * W;     // = 2 D: one thread a key for the decays
+  static constexpr int DG = D / 4;      // key groups of 4 for the scores
+  static constexpr int LA = D + 4;      // row strides of the mma operands in
+  static constexpr int LB = D + 8;      // shared memory, free of bank conflicts
+  static constexpr int LS = C + 4;
+  // float offsets in dynamic shared memory
+  static constexpr int R = 0, K = R + C * D, WO = K + C * D, V = WO + C * D;
+  static constexpr int A = V + C * LB, KT = A + C * LA, SC = KT + C * LB;
+  static constexpr int PART = SC + C * LS;  // [C][C][DG + 1] partial scores;
+                                            // the outputs [C][D] after
+  static constexpr int SS = PART + (C * C * (DG + 1) > C * D ? C * C * (DG + 1) : C * D);
+  static constexpr int PC = SS + D * LB, U = PC + D;
+  static constexpr int SMEM = (U + D) * 4;
+  static_assert(2 * D == NT && (C / 2) * DG == NT, "plan");
+};
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both tf32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: a = ah + al, b = bh + bl, the al bl term dropped; the
+// small terms first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  mma(c, al, bh);
+  mma(c, ah, bl);
+  mma(c, ah, bh);
+}
+
+// m16n8k8 fragments from f32 shared memory, split into hi and lo.  g = lane /
+// 4, t = lane % 4.  A rows m0.., cols k0.. of a row-major [m][k] (ld apart):
+__device__ __forceinline__ void frag_a(const float* a, int ld, int m0, int k0, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  split(a[(m0 + g) * ld + k0 + t], hi[0], lo[0]);
+  split(a[(m0 + g + 8) * ld + k0 + t], hi[1], lo[1]);
+  split(a[(m0 + g) * ld + k0 + t + 4], hi[2], lo[2]);
+  split(a[(m0 + g + 8) * ld + k0 + t + 4], hi[3], lo[3]);
+}
+// ... the same A stored transposed, [k][m]:
+__device__ __forceinline__ void frag_at(const float* at, int ld, int m0, int k0, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  split(at[(k0 + t) * ld + m0 + g], hi[0], lo[0]);
+  split(at[(k0 + t) * ld + m0 + g + 8], hi[1], lo[1]);
+  split(at[(k0 + t + 4) * ld + m0 + g], hi[2], lo[2]);
+  split(at[(k0 + t + 4) * ld + m0 + g + 8], hi[3], lo[3]);
+}
+// B rows k0.., cols n0.. of a row-major [k][n]:
+__device__ __forceinline__ void frag_b(const float* b, int ld, int k0, int n0, uint32_t (&hi)[2],
+                                       uint32_t (&lo)[2]) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  split(b[(k0 + t) * ld + n0 + g], hi[0], lo[0]);
+  split(b[(k0 + t + 4) * ld + n0 + g], hi[1], lo[1]);
+}
+
+// T: r, k, v and o; TW: w; TU: u.  VEC: 16-byte loads and stores.  One block
+// a (batch, head).
+template <int D, typename T, typename TW, typename TU, bool VEC>
+__global__ void __launch_bounds__(Plan<D>::NT, WKV6_CHUNK_MINB)
+wkv6_chunked_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                    const TW* __restrict__ w, const TU* __restrict__ u,
+                    const float* __restrict__ s0, T* __restrict__ o, float* __restrict__ sT,
+                    Strides rs, Strides ks, Strides vs, Strides ws, Strides os, long long u_sh,
+                    int H, int S) {
+  using PL = Plan<D>;
+  constexpr int NT = PL::NT, DG = PL::DG, LA = PL::LA, LB = PL::LB, LS = PL::LS;
+  extern __shared__ __align__(16) float sm[];
+  float* const r_s = sm + PL::R;     // [C][D] this chunk's r, k, w
+  float* const k_s = sm + PL::K;
+  float* const w_s = sm + PL::WO;
+  float* const v_s = sm + PL::V;     // [C][LB]
+  float* const a_s = sm + PL::A;     // [C][LA]: r_t * prod_{m<t} w_m (inter A)
+  float* const kt_s = sm + PL::KT;   // [C][LB]: k_s * prod_{m>s} w_m (update A^T)
+  float* const sc_s = sm + PL::SC;   // [C][LS]: intra-chunk scores (intra A)
+  float* const part = sm + PL::PART; // [C][C][DG + 1], then the outputs [C][D]
+  float* const s_s = sm + PL::SS;    // [D][LB]: the state entering the chunk (inter B)
+  float* const pc_s = sm + PL::PC;   // [D]: prod of the chunk's w
+  float* const u_s = sm + PL::U;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const T* rb = r + b * rs.b + h * rs.h;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  const TW* wb = w + b * ws.b + h * ws.h;
+  T* ob = o + b * os.b + h * os.h;
+  const long long sbase = (static_cast<long long>(b) * H + h) * D * D;
+  const int m0 = 16 * warp;  // this warp's state rows (F) and output columns (E)
+
+  for (int i = tid; i < D; i += NT) u_s[i] = to_f32(u[h * u_sh + i]);
+  // the state in registers, as m16n8 accumulators: sacc[nt] holds rows m0 + g
+  // (0, 1) and m0 + g + 8 (2, 3), cols 8 nt + 2 tq (+1); and in shared memory
+  float sacc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sacc[nt][e] = s0[sbase + (m0 + g + 8 * (e / 2)) * D + 8 * nt + 2 * tq + e % 2];
+  for (int i = tid; i < D * D; i += NT) s_s[(i / D) * LB + i % D] = s0[sbase + i];
+
+  Stage<T, VEC, D, C, NT> rq, kq, vq;
+  Stage<TW, VEC, D, C, NT> wq;
+  auto load = [&](int t0) {
+    const int n = min(C, S - t0);
+    rq.load(rb, rs.s, t0, n);
+    kq.load(kb, ks.s, t0, n);
+    wq.load(wb, ws.s, t0, n);
+    vq.load(vb, vs.s, t0, n);
+  };
+  // the steps past S add nothing: r = k = v = 0, w = 1
+  auto store = [&]() {
+    rq.store(r_s, D, 0.f);
+    kq.store(k_s, D, 0.f);
+    wq.store(w_s, D, 1.f);
+    vq.store(v_s, LB, 0.f);
+  };
+  load(0);
+  store();
+  __syncthreads();
+#if WKV6_PROFILE
+  long long prof[6] = {0, 0, 0, 0, 0, 0}, prof_t = clock64();
+#endif
+
+  for (int t0 = 0; t0 < S; t0 += C) {
+    const int n = min(C, S - t0);
+    const bool more = t0 + C < S;
+    if (more) load(t0 + C);  // in flight while this chunk runs
+
+    // decays: thread d < D the prefix products down column d, thread D + d
+    // the suffix products
+    if (tid < D) {
+      const int d = tid;
+      float p = 1.f;
+      for (int t = 0; t < C; ++t) {
+        a_s[t * LA + d] = r_s[t * D + d] * p;
+        p *= w_s[t * D + d];
+      }
+      pc_s[d] = p;
+    } else {
+      const int d = tid - D;
+      float q = 1.f;
+      for (int t = C - 1; t >= 0; --t) {
+        kt_s[t * LB + d] = k_s[t * D + d] * q;
+        q *= w_s[t * D + d];
+      }
+    }
+    // scores: thread (pair p, key group kg) sums over its 4 keys, for rows
+    // t = p + 1 and C - 1 - p (the pair has C steps of work, row 0 rides
+    // with the middle pair), the bonus r_t u k_t at s = t and
+    // r_t k_s prod_{m=s+1}^{t-1} w_m for s < t, the decay kept as a running
+    // product (<= 1) walking s down from t - 1
+    {
+      const int pr = tid / DG, kg = tid % DG, d0 = 4 * kg;
+      const float4 u4 = *reinterpret_cast<const float4*>(&u_s[d0]);
+      auto row = [&](int t) {
+        float4 rd = *reinterpret_cast<const float4*>(&r_s[t * D + d0]);
+        const float4 kt = *reinterpret_cast<const float4*>(&k_s[t * D + d0]);
+        part[(t * C + t) * (DG + 1) + kg] =
+            rd.x * u4.x * kt.x + rd.y * u4.y * kt.y + rd.z * u4.z * kt.z + rd.w * u4.w * kt.w;
+#pragma unroll
+        for (int j = 1; j < C; ++j) {  // s = t - j; the rows past s = 0 read row 0 unused
+          const int s = t - j, sc = max(s, 0);
+          const float4 k4 = *reinterpret_cast<const float4*>(&k_s[sc * D + d0]);
+          if (s >= 0)
+            part[(t * C + s) * (DG + 1) + kg] = rd.x * k4.x + rd.y * k4.y + rd.z * k4.z + rd.w * k4.w;
+          const float4 w4 = *reinterpret_cast<const float4*>(&w_s[sc * D + d0]);
+          rd.x *= w4.x;
+          rd.y *= w4.y;
+          rd.z *= w4.z;
+          rd.w *= w4.w;
+        }
+      };
+      row(pr + 1);
+      row(pr + 1 < C - 1 - pr ? C - 1 - pr : 0);
+    }
+    PROF_MARK(0)
+    __syncthreads();
+    PROF_MARK(1)
+    for (int i = tid; i < C * C; i += NT) {
+      const int t = i / C, s = i % C;
+      float acc = 0.f;
+      if (s <= t) {
+#pragma unroll
+        for (int kg = 0; kg < DG; ++kg) acc += part[i * (DG + 1) + kg];
+      }
+      sc_s[t * LS + s] = acc;
+    }
+    __syncthreads();
+    PROF_MARK(2)
+
+    // E: o = A S_prev + scores v, rows t, this warp's 16 columns; even and
+    // odd k-steps in two sums, so the mma chains are half as long
+    float oacc[2][4] = {};
+    {
+      float odd[2][4] = {};
+      uint32_t ah[4], al[4], bh[2], bl[2];
+#pragma unroll 2
+      for (int kk = 0; kk < D; kk += 8) {
+        frag_a(a_s, LA, 0, kk, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          frag_b(s_s, LB, kk, m0 + 8 * nt, bh, bl);
+          mma3(kk % 16 ? odd[nt] : oacc[nt], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < C; kk += 8) {
+        frag_a(sc_s, LS, 0, kk, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          frag_b(v_s, LB, kk, m0 + 8 * nt, bh, bl);
+          mma3(kk % 16 ? odd[nt] : oacc[nt], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[nt][e] += odd[nt][e];
+    }
+    // F: S = diag(pc) S_prev + K~^T v, this warp's 16 rows
+    {
+      const float p0 = pc_s[m0 + g], p1 = pc_s[m0 + g + 8];
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        sacc[nt][0] *= p0;
+        sacc[nt][1] *= p0;
+        sacc[nt][2] *= p1;
+        sacc[nt][3] *= p1;
+      }
+      uint32_t ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+      for (int kk = 0; kk < C; kk += 8) {
+        frag_at(kt_s, LB, m0, kk, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          frag_b(v_s, LB, kk, 8 * nt, bh, bl);
+          mma3(sacc[nt], ah, al, bh, bl);
+        }
+      }
+    }
+    PROF_MARK(3)
+    __syncthreads();  // every read of this chunk's staged rows and S_prev is done
+    PROF_MARK(4)
+    float* const o_s = part;  // [C][D]
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o_s[(g + 8 * (e / 2)) * D + m0 + 8 * nt + 2 * tq + e % 2] = oacc[nt][e];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s_s[(m0 + g + 8 * (e / 2)) * LB + 8 * nt + 2 * tq + e % 2] = sacc[nt][e];
+    if (more) store();
+    __syncthreads();
+    {
+      constexpr int N = Pack<T, VEC>::N, ROW = D / N;
+      for (int idx = tid; idx < n * ROW; idx += NT) {
+        const int c = idx / ROW, col = (idx % ROW) * N;
+        Pack<T, VEC> pk;
+#pragma unroll
+        for (int e = 0; e < N; ++e) pk.v[e] = from_f32<T>(o_s[c * D + col + e]);
+        T* dst = ob + (t0 + c) * os.s + col;
+        if constexpr (VEC) {
+          uint4 u4;
+          memcpy(&u4, pk.v, 16);
+          *reinterpret_cast<uint4*>(dst) = u4;
+        } else {
+          *dst = pk.v[0];
+        }
+      }
+    }
+    // the outputs are read before the next chunk's scores overwrite them
+    __syncthreads();
+    PROF_MARK(5)
+  }
+#if WKV6_PROFILE
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0)
+    printf("wkv6 chunked phases (cycles, thread 0 of block 0): decays+scores+bonus %lld, "
+           "wait %lld, reduce %lld, mma %lld, wait %lld, stores+output %lld\n",
+           prof[0], prof[1], prof[2], prof[3], prof[4], prof[5]);
+#endif
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sT[sbase + (m0 + g + 8 * (e / 2)) * D + 8 * nt + 2 * tq + e % 2] = sacc[nt][e];
+}
+
+}  // namespace chunked
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -316,14 +651,24 @@ bool aligned16(const void* p, const Strides& s, size_t elem) {
          (s.h * elem) % 16 == 0 && (s.s * elem) % 16 == 0;
 }
 
+#ifndef WKV6_CHUNKED
+#define WKV6_CHUNKED 0
+#endif
+
 template <int D, typename T, typename TW, typename TU, bool VEC>
 cudaError_t launch_kernel(const Args& a) {
+#if WKV6_CHUNKED
+  using PL = chunked::Plan<D>;
+  auto kern = chunked::wkv6_chunked_kernel<D, T, TW, TU, VEC>;
+  const dim3 grid(a.H, a.B);
+#else
   using PL = Plan<D>;
   auto kern = wkv6_kernel<D, T, TW, TU, VEC>;
+  const dim3 grid(D / PL::JT, a.H, a.B);
+#endif
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          PL::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid(D / PL::JT, a.H, a.B);
   kern<<<grid, PL::NT, PL::SMEM, a.stream>>>(
       static_cast<const T*>(a.r), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const TW*>(a.w), static_cast<const TU*>(a.u),
