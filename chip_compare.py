@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Side-by-side timing of kernel builds on one card.
 
-    python3 chip_compare.py [--tree NAME=DIR ...] [--variant NAME=FLAGS ...]
+    python3 chip_compare.py [--tree NAME=DIR[:FLAGS] ...]
+                            [--variant NAME=FLAGS ...]
                             [--kernels rmsnorm,rwkv6_scan] [--rounds N]
                             [--out FILE.json]
 
 Builds each named kernel source (``src/repro_torch/kernels/csrc/<k>.cu``)
 from this checkout ("this"), from each ``--tree`` (another checkout, for
-example the parent commit unpacked with ``git archive``), and from this
+example the parent commit unpacked with ``git archive``, built with the
+extra nvcc flags after its ":" if any), and from this
 checkout again with each ``--variant``'s extra nvcc flags (for example
 ``rows2=-DRMSNORM_ROWS=2``), one ``nvcc`` each, all at once.  Then, on the
 main-path shapes of ``chip_smoke.py`` (K3: 4096 x 2048 and 4096 x 4096
@@ -43,12 +45,12 @@ CASES = {"rmsnorm": [(4096, 2048, "bfloat16", "bfloat16", "main", 50),
 
 def builds(trees: dict, variants: dict, kernels: list, workdir: Path):
     """(kernel, build name) -> library path; one nvcc per library, all at
-    once."""
+    once.  trees: name -> (checkout, extra flags)."""
     from repro_torch.kernels import build as kbuild
     nvcc = kbuild.nvcc_path()
     jobs = {}
     for kernel in kernels:
-        todo = [(name, tree, []) for name, tree in trees.items()]
+        todo = [(name, tree, flags) for name, (tree, flags) in trees.items()]
         todo += [(name, ROOT, flags.split()) for name, flags in
                  variants.items()]
         for name, tree, flags in todo:
@@ -124,10 +126,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_compare: CUDA is not available", file=sys.stderr)
         return 1
-    trees = {"this": ROOT}
+    trees = {"this": (ROOT, [])}
     for spec in args.tree:
         name, path = spec.split("=", 1)
-        trees[name] = Path(path).resolve()
+        path, _, flags = path.partition(":")
+        trees[name] = (Path(path).resolve(), flags.split())
     variants = dict(spec.split("=", 1) for spec in args.variant)
     kernels = args.kernels.split(",")
     report = {"card": chip_smoke.card_line(), "torch": torch.__version__,

@@ -13,9 +13,9 @@ cases through each build with the smoke's own checks:
   gate and the determinism check);
 - the WKV6 scan (K2): faults anywhere in the source, run through every K2
   case of the kernel phase and ``chip_smoke.rwkv_check_case`` (output,
-  final state and chaining);
+  final state, chaining and determinism);
 - RMSNorm (K3): faults anywhere in the source, run through every K3 case
-  and ``chip_smoke.rms_check_case``;
+  and ``chip_smoke.rms_check_case`` (output and determinism);
 - the scheduler kernels (K4 ``find_alloc``, K5 ``commit_scan``): faults
   anywhere in the source, run on the fig5 tables of every size and
   topology of the kernel phase through ``chip_smoke.find_alloc_check`` and
@@ -77,33 +77,41 @@ FA_MUTANTS = {
         "Gm::BOX))",
         "the output map takes dense (B,Hq,S,D) strides, not the given ones"),
 }
-_STEP = ("          acc[e] = fmaf(rr[e], st[i + e], acc[e]);  "
+_STEP = ("            acc[m][e] = fmaf(rr[e], st[m][4 * q + e], acc[m][e]);  "
          "// o_t reads S_{t-1}\n",
-         "          bon[e] += bb[e];\n",
-         "          st[i + e] = fmaf(ww[e], st[i + e], kk[e] * vj);  // S_t\n")
+         "            st[m][4 * q + e] = fmaf(ww[e], st[m][4 * q + e], "
+         "kk[e] * vj[m]);  // S_t\n")
 # name -> (text in the WKV6 source, its replacement, what the fault is)
 RWKV_MUTANTS = {
-    "no_bonus": (_STEP[1], "", "the u-bonus term is dropped"),
+    "no_bonus": (
+        "fmaf(v_s[c * JT + col + e], b_s[c], out)", "out",
+        "the u-bonus term is dropped"),
     "output_after_update": (
-        "".join(_STEP), _STEP[1] + _STEP[2] + _STEP[0],
+        "".join(_STEP), _STEP[1] + _STEP[0],
         "o_t reads S_t instead of S_{t-1}"),
     "decay_after_add": (
-        "fmaf(ww[e], st[i + e], kk[e] * vj)",
-        "ww[e] * (st[i + e] + kk[e] * vj)",
+        "fmaf(ww[e], st[m][4 * q + e], kk[e] * vj[m])",
+        "ww[e] * (st[m][4 * q + e] + kk[e] * vj[m])",
         "the decay is applied after the kv add"),
     "w_as_bf16": (
-        "w_s[c * D + j] = to_f32(wb[t * ws.s + j]);",
-        "w_s[c * D + j] = __bfloat162float(__float2bfloat16("
-        "to_f32(wb[t * ws.s + j])));",
+        "const float ww[4] = {w4.x, w4.y, w4.z, w4.w};",
+        "const float ww[4] = {__bfloat162float(__float2bfloat16(w4.x)), "
+        "__bfloat162float(__float2bfloat16(w4.y)), "
+        "__bfloat162float(__float2bfloat16(w4.z)), "
+        "__bfloat162float(__float2bfloat16(w4.w))};",
         "w is rounded to bf16 on read"),
     "s0_ignored": (
-        "st[i] = s0[sbase + i * D + j];", "st[i] = 0.f;",
-        "the initial state S_0 is ignored"),
+        "st[n][i] = s0[sbase + (NK * kg + i) * D + 16 * n];",
+        "st[n][i] = 0.f;", "the initial state S_0 is ignored"),
     "state_one_early": (
-        "st[i + e] = fmaf(ww[e], st[i + e], kk[e] * vj);",
-        "st[i + e] = t0 + c == S - 1 ? st[i + e] : "
-        "fmaf(ww[e], st[i + e], kk[e] * vj);",
+        "st[m][4 * q + e] = fmaf(ww[e], st[m][4 * q + e], kk[e] * vj[m]);",
+        "st[m][4 * q + e] = t0 + c == S - 1 ? st[m][4 * q + e] : "
+        "fmaf(ww[e], st[m][4 * q + e], kk[e] * vj[m]);",
         "the final state is emitted one step early"),
+    "ragged_tail_dropped": (
+        "const int n = min(CH, S - t0);\n    const bool more",
+        "const int n = S - t0 < CH ? S - t0 - 1 : CH;\n    const bool more",
+        "the last step of a ragged last chunk is dropped"),
 }
 RMS_MUTANTS = {
     "no_eps": ("static_cast<float>(D) + eps)", "static_cast<float>(D))",
@@ -113,6 +121,15 @@ RMS_MUTANTS = {
         "the mean square divides by D - 1"),
     "no_scale": ("return xf * inv * s;", "return xf * inv;",
                  "the scale is skipped"),
+    "prefetch_unused": (
+        "for (int i = 0; i < VPT; ++i) cur[i] = nxt[i];", "",
+        "the prefetched row is never taken up: every row of a block is "
+        "normed from the block's first row"),
+    "tail_dropped": (
+        "const int n = static_cast<int>(min(static_cast<long long>(ROWS), "
+        "rows - r0));",
+        "const int n = rows - r0 < ROWS ? 0 : ROWS;",
+        "a last block with fewer than ROWS rows writes none"),
 }
 FIND_ALLOC_MUTANTS = {
     "prefix_one_short": (

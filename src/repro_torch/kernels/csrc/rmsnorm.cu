@@ -13,9 +13,9 @@
 // by bytes, and the design is about keeping bytes in flight.
 //
 // Design.  The TPU kernel tiles 256 rows a grid step and pads the row count
-// to a multiple of 256; here a block of 256 threads walks ROWS consecutive
-// rows (the last block masks the tail), so any number of rows runs
-// unpadded.  Two forms:
+// to a multiple of 256; here a block of 256 threads walks ROWS = 8
+// consecutive rows (the last block masks the tail), so any number of rows
+// runs unpadded.  Two forms:
 // - the register form (`rmsnorm_rows_kernel`), for rows of exactly VPT
 //   16-byte vectors a thread (VPT = 1, 2, 4: 2048 and 4096 wide in bf16,
 //   2048 and 4096 in f32) with a scale of x's dtype and aligned rows.  The
@@ -24,18 +24,21 @@
 //   squares and the scaled store (no second read); the next row's loads
 //   are issued before the current row's block reduction, so each block
 //   keeps a row of bytes in flight across its barrier.  The reduction
-//   buffer alternates between rows, so one barrier a row suffices.
+//   buffer alternates between rows, so one barrier a row suffices.  Loads
+//   and stores carry streaming hints.
 // - the general form (`rmsnorm_kernel`), one block a row: any width (the
 //   ragged 1600), unaligned rows (element loads) and an f32 scale with bf16
 //   x.  Pass 1 sums squares, pass 2 reads the row again (an L1/L2 hit) and
 //   stores.
-// Measured against each other (scripts and numbers: PERF.md, PR 18): the
-// register form replaced one-block-a-row at the model widths because it
-// was faster at both 4096 x 2048 and 4096 x 4096 bf16 in one run on one
-// card.  A warp per row (one pass, PR 15) was slower at 4096: its
-// registers cut the resident warps.  Rows are read through a row stride
-// with the last dim contiguous, so a strided view is read in place.  bf16
-// converts only through the intrinsics.
+// Measured with chip_compare.py on one NVIDIA H100 80GB HBM3, 700.00 W
+// (PERF.md, PR 18), x read from device memory: the register form took
+// 0.0112 ms at 4096 x 2048 bf16 and 0.0248 ms at 4096 x 4096, where one
+// block a row for every width (the form before) took 0.0144 and 0.0295, and
+// F.rms_norm 0.0146 and 0.0300; 2 or 4 rows a block were within 10% of 8,
+// 16 slower, the hints worth 3-8%.  A warp per row (one pass, PR 15) was
+// slower at 4096: its registers cut the resident warps.  Rows are read
+// through a row stride with the last dim contiguous, so a strided view is
+// read in place.  bf16 converts only through the intrinsics.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -46,24 +49,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // rows a block of the register form walks
-#ifndef RMSNORM_ROWS
-#define RMSNORM_ROWS 8
-#endif
-constexpr int ROWS = RMSNORM_ROWS;
+constexpr int ROWS = 8;
 
-// x loads and out stores of the register form, as 16-byte vectors with
-// streaming hints (build option RMSNORM_STREAM=0: plain loads and stores)
-#ifndef RMSNORM_STREAM
-#define RMSNORM_STREAM 1
-#endif
+// x loads and out stores of the register form: 16-byte vectors with
+// streaming hints (each byte is read or written once)
 template <typename V>
 __device__ __forceinline__ V ld_row(const V* p) {
   static_assert(sizeof(V) == 16, "one 16-byte vector");
-#if RMSNORM_STREAM
   const uint4 u = __ldcs(reinterpret_cast<const uint4*>(p));
-#else
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-#endif
   V v;
   memcpy(&v, &u, sizeof(V));
   return v;
@@ -72,11 +65,7 @@ template <typename V>
 __device__ __forceinline__ void st_row(V* p, const V& v) {
   uint4 u;
   memcpy(&u, &v, sizeof(V));
-#if RMSNORM_STREAM
   __stcs(reinterpret_cast<uint4*>(p), u);
-#else
-  *reinterpret_cast<uint4*>(p) = u;
-#endif
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

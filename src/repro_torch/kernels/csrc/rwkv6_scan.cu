@@ -7,40 +7,52 @@
 //   o_t = r_t (diag(u) k_t^T v_t + S_{t-1}),   S_t = diag(w_t) S_{t-1} + k_t^T v_t,
 // returning o (in r's dtype) and S_T (f32).  All math is f32.
 //
-// Design (the recurrent form).  The TPU kernel cuts the sequence into chunks
-// of 32 and carries the state across a sequential grid axis in VMEM scratch.
-// CUDA blocks run in no order, so a block walks the sequence in a loop with
-// the state in registers.  Value columns are independent (S[:, j] depends
-// only on v[:, j]), so a block owns JT value columns of one (batch, head) and
-// the D / JT tiles of a head run side by side (their re-reads of r, k and w
-// hit L2).  Each column is split over P = 4 lanes: lane p keeps the D / 4
-// keys i of the 16-byte groups q * 4 + p, so a step is D / 4 independent
-// state updates and a chain of D / 16 FMAs a lane, and o_t is summed over
-// the 4 lanes by two shuffles.  At D = 64 a block is 256 threads, one per
-// (column, lane), 256 blocks in all.  The block stages CH steps of r, k, w,
-// v (f32, converted once) in shared memory, double-buffered: the next
-// chunk's 16-byte loads are issued into registers before the current chunk
-// runs and stored after it.  The bonus sum_i r_i u_i k_i of each staged step
-// is reduced by one warp, once for the block; outputs go through shared
-// memory and leave as 16-byte rows.  The sequence is not padded: a ragged S
-// shortens the last chunk, which matches the TPU wrapper's padding with
-// w = 1 exactly.  Inputs are read through (batch, head, seq) strides with
-// the last dim contiguous, so the model's (B,S,H,D) tensors are read in
-// place; unaligned views take element loads.  bf16 is converted only
-// through the intrinsics.
+// Design.  The TPU kernel cuts the sequence into chunks of 32 and carries
+// the state across a sequential grid axis in VMEM scratch, with the
+// intra-chunk part as (C,C) matrix products.  CUDA blocks run in no order,
+// so here a block walks the sequence in a loop with the state in registers
+// (the recurrent form).  Value columns are independent (S[:, j] depends only
+// on v[:, j]), so a block owns JT = 64 value columns of one (batch, head)
+// (a head of 128 is two blocks side by side, whose re-reads of r, k and w
+// hit L2).  The keys are cut into groups of NK = 8: a key group is 16
+// lanes, lane l keeping S[i][l + 16 n] for the group's 8 keys i and its
+// NC = JT / 16 columns, so a step is 8 x 4 independent state updates a
+// thread, r, k and w come from shared memory as 16-byte broadcasts (the
+// same for 16 lanes), and each group's share of o_t goes to shared memory,
+// summed over the groups once a chunk.  At D = 64 a block is 128 threads
+// (8 key groups), 256 blocks in all.  The block stages CH = 16 steps of
+// r, k, w, v in shared memory as f32, converted once and double-buffered:
+// the next chunk's 16-byte loads are issued into registers before the
+// current chunk runs and stored after it.  The bonus sum_i r_i u_i k_i of
+// each staged step is reduced by one warp, once for the block; outputs
+// leave as 16-byte rows.  The sequence is not padded: a ragged S shortens
+// the last chunk, which matches the TPU wrapper's padding with w = 1
+// exactly.  Inputs are read through (batch, head, seq) strides with the
+// last dim contiguous, so the model's (B,S,H,D) tensors are read in place;
+// unaligned views take element loads.  bf16 is converted only through the
+// intrinsics.
+//
+// Measured against each other at the rwkv6-7b prefill shape with
+// chip_compare.py on one NVIDIA H100 80GB HBM3, 700.00 W (PERF.md, PR 18):
+// this form 0.289 ms; the previous one (a block of 64 threads a (batch,
+// head), a thread a column) 0.480; a chunked form in the TPU kernel's own shape (C = 16, decays as
+// running products of w, scores on CUDA cores, A S, scores v and the state
+// update on mma.sync m16n8k8 in 3xTF32) 0.320, so it was dropped.  Longer
+// chunks (32 steps: 0.379) and 4 keys a thread (0.320) were slower.
 //
 // Bound.  At the rwkv6-7b prefill shape (B=4, H=64, S=1024, D=64, r/k/v bf16,
 // w f32) the function moves 3*33.6 MB of r, k, v, 67.1 MB of w, 33.6 MB of o
 // and 2*4.2 MB of S_0 and S_T, 209.7 MB in all: 0.063 ms at 3.35 TB/s.  It does
 // 5 D^2 + 5 D flops per (b, h, t) (k^T v, the decayed update, r S, and the
 // bonus), 5.4 GFLOP: 0.080 ms at 67 TFLOP/s of f32 CUDA cores.  So the bound
-// is 0.080 ms, by operations; a step is 3 instructions an element (FMUL,
-// FFMA, FFMA) plus the shared-memory reads.
+// is 0.080 ms, by operations.  A step is 3 f32 instructions an element
+// (FMUL, FFMA, FFMA), 0.10 ms of issue at the card's f32 rate; the kernel
+// runs at about 3x that: with 8 warps an SM (two blocks) the step loop
+// does not keep the f32 pipes busy.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <string.h>
-#include <stdio.h>
 #include <type_traits>
 
 namespace {
@@ -61,36 +73,26 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// keys a warp keeps: warp g of a block owns keys NK g .. NK g + NK - 1
-#ifndef WKV6_NK
-#define WKV6_NK 16
-#endif
-#ifndef WKV6_MINB
-#define WKV6_MINB 1
-#endif
-#ifndef WKV6_UNROLL
-#define WKV6_UNROLL 4
-#endif
-constexpr int STEP_UNROLL = WKV6_UNROLL;
-constexpr int NK = WKV6_NK;
-#ifndef WKV6_JT
-#define WKV6_JT 64
-#endif
+// A block owns JT value columns of one (batch, head); key group kg (NK keys)
+// is 16 lanes, each lane NC = JT / 16 columns: lane l of the group keeps
+// S[NK kg + i][j0 + l + 16 n], i < NK, n < NC.  Two key groups a warp.
+constexpr int NK = 8;
 
 template <int D>
 struct Plan {
-  static constexpr int JT = D < WKV6_JT ? D : WKV6_JT;  // value columns a block
-  static constexpr int NC = JT > 32 ? JT / 32 : 1;       // value columns a lane
-  static constexpr int G = D / NK;                       // warps a block
-  static constexpr int NT = 32 * G;                      // threads a block
-  static constexpr int CH = 16;                          // steps a chunk
+  static constexpr int JT = D < 64 ? D : 64;  // value columns a block
+  static constexpr int NC = JT / 16;          // value columns a lane
+  static constexpr int G = D / NK;            // key groups
+  static constexpr int NT = 16 * G;           // threads a block
+  static constexpr int CH = 16;               // steps a chunk
   // floats of one staging buffer: r, k, w [CH][D], v [CH][JT], bonus [CH]
   static constexpr int BUF = 3 * CH * D + CH * JT + CH;
-  // dynamic shared memory: two buffers, the partial outputs [G][CH][JT],
-  // u [D]
-  static constexpr int SMEM = (2 * BUF + G * CH * JT + D) * 4;
-  static constexpr int MIN_BLOCKS = WKV6_MINB;
-  static_assert(D % NK == 0 && JT % 16 == 0 && NC * 32 >= JT, "plan");
+  // the partial outputs of a key group, [CH][JT] and 16 floats of padding,
+  // so that the two groups of a warp store to different banks
+  static constexpr int PST = CH * JT + 16;
+  // dynamic shared memory: two buffers, the partial outputs [G][PST], u [D]
+  static constexpr int SMEM = (2 * BUF + G * PST + D) * 4;
+  static_assert(D % NK == 0 && NC >= 1 && G % 2 == 0, "plan");
 };
 
 // N elements of T loaded as one 16-byte vector (VEC) or one element
@@ -119,26 +121,23 @@ struct Stage {
   static constexpr int TOTAL = CH * ROW;        // packs a chunk
   static constexpr int NL = (TOTAL + NT - 1) / NT;
   Pack<T, VEC> q[NL];
-  int n_;  // steps loaded
 
   // steps t0 .. t0 + n - 1 of a (batch, head) whose step 0 is at base
   __device__ __forceinline__ void load(const T* base, long long ss, int t0, int n) {
-    n_ = n;
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
       const int idx = threadIdx.x + l * NT, c = idx / ROW;
       if (idx < TOTAL && c < n) load_pack(q[l], base + (t0 + c) * ss + (idx % ROW) * N);
     }
   }
-  // dst: [CH] rows of COLS, ld apart; the rows past the steps loaded hold
-  // fill
-  __device__ __forceinline__ void store(float* dst, int ld, float fill) const {
+  // dst: [CH][COLS]; the rows past the steps loaded are not read
+  __device__ __forceinline__ void store(float* dst) const {
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
-      const int idx = threadIdx.x + l * NT, c = idx / ROW, col = (idx % ROW) * N;
+      const int idx = threadIdx.x + l * NT;
       if (idx < TOTAL) {
 #pragma unroll
-        for (int e = 0; e < N; ++e) dst[c * ld + col + e] = c < n_ ? to_f32(q[l].v[e]) : fill;
+        for (int e = 0; e < N; ++e) dst[idx * N + e] = to_f32(q[l].v[e]);
       }
     }
   }
@@ -146,43 +145,34 @@ struct Stage {
 
 // T: r, k, v and o; TW: w; TU: u.  VEC: 16-byte loads and stores.
 template <int D, typename T, typename TW, typename TU, bool VEC>
-__global__ void __launch_bounds__(Plan<D>::NT, Plan<D>::MIN_BLOCKS)
+__global__ void __launch_bounds__(Plan<D>::NT)
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
             const TW* __restrict__ w, const TU* __restrict__ u,
             const float* __restrict__ s0, T* __restrict__ o, float* __restrict__ sT,
             Strides rs, Strides ks, Strides vs, Strides ws, Strides os, long long u_sh, int H,
             int S) {
   using PL = Plan<D>;
-  constexpr int JT = PL::JT, NC = PL::NC, G = PL::G, NT = PL::NT, CH = PL::CH;
+  constexpr int JT = PL::JT, NC = PL::NC, G = PL::G, NT = PL::NT, CH = PL::CH, PST = PL::PST;
   extern __shared__ __align__(16) float smem[];
-  float* const part = smem + 2 * PL::BUF;  // [G][CH][JT]: r S over each warp's keys
-  float* const u_s = part + G * CH * JT;   // [D]
+  float* const part = smem + 2 * PL::BUF;  // [G][PST]: r S over each key group
+  float* const u_s = part + G * PST;       // [D]
 
   const int tid = threadIdx.x;
-  const int g = tid / 32, lane = tid % 32;  // this warp's keys, this lane's columns
+  const int kg = tid / 16, cl = tid % 16;  // this thread's key group and columns
   const int j0 = blockIdx.x * JT, h = blockIdx.y, b = blockIdx.z;
   const T* rb = r + b * rs.b + h * rs.h;
   const T* kb = k + b * ks.b + h * ks.h;
   const T* vb = v + b * vs.b + h * vs.h + j0;
   const TW* wb = w + b * ws.b + h * ws.h;
   T* ob = o + b * os.b + h * os.h + j0;
-  const long long sbase = (static_cast<long long>(b) * H + h) * D * D + j0;
-
-  // column n of this lane is jj[n]; lanes past JT (D = 16) idle on column 0
-  int jj[NC];
-  bool live[NC];
-#pragma unroll
-  for (int n = 0; n < NC; ++n) {
-    live[n] = lane + 32 * n < JT;
-    jj[n] = live[n] ? lane + 32 * n : 0;
-  }
+  const long long sbase = (static_cast<long long>(b) * H + h) * D * D + j0 + cl;
 
   for (int i = tid; i < D; i += NT) u_s[i] = to_f32(u[h * u_sh + i]);
-  float st[NC][NK];  // st[n][i] = S[NK g + i][j0 + jj[n]]
+  float st[NC][NK];  // st[n][i] = S[NK kg + i][j0 + cl + 16 n]
 #pragma unroll
   for (int n = 0; n < NC; ++n)
 #pragma unroll
-    for (int i = 0; i < NK; ++i) st[n][i] = s0[sbase + (NK * g + i) * D + jj[n]];
+    for (int i = 0; i < NK; ++i) st[n][i] = s0[sbase + (NK * kg + i) * D + 16 * n];
 
   Stage<T, VEC, D, CH, NT> rq, kq;
   Stage<TW, VEC, D, CH, NT> wq;
@@ -195,14 +185,15 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
     vq.load(vb, vs.s, t0, n);
   };
   auto store = [&](float* buf) {
-    rq.store(buf, D, 0.f);
-    kq.store(buf + CH * D, D, 0.f);
-    wq.store(buf + 2 * CH * D, D, 0.f);
-    vq.store(buf + 3 * CH * D, JT, 0.f);
+    rq.store(buf);
+    kq.store(buf + CH * D);
+    wq.store(buf + 2 * CH * D);
+    vq.store(buf + 3 * CH * D);
   };
   // bonus[c] = sum_i r_i u_i k_i of each staged step, one warp a step
   auto bonus = [&](float* buf, int n) {
-    for (int c = g; c < n; c += G) {
+    const int warp = tid / 32, lane = tid % 32;
+    for (int c = warp; c < n; c += NT / 32) {
       float s = 0.f;
       for (int i = lane; i < D; i += 32)
         s = fmaf(buf[c * D + i] * u_s[i], buf[CH * D + c * D + i], s);
@@ -228,21 +219,18 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
     const float* w_s = buf + 2 * CH * D;
     const float* v_s = buf + 3 * CH * D;
     const float* b_s = v_s + CH * JT;
-#if WKV6_UNROLL
-#pragma unroll STEP_UNROLL
-#endif
     for (int c = 0; c < n; ++c) {
       float vj[NC];
 #pragma unroll
-      for (int m = 0; m < NC; ++m) vj[m] = v_s[c * JT + jj[m]];
+      for (int m = 0; m < NC; ++m) vj[m] = v_s[c * JT + cl + 16 * m];
       float acc[NC][4] = {};
 #pragma unroll
       for (int q = 0; q < NK / 4; ++q) {
-        // the same 16 bytes for the whole warp: broadcasts
-        const int i = c * D + NK * g + 4 * q;
-        const float4 r4 = *reinterpret_cast<const float4*>(&r_s[i]);
-        const float4 k4 = *reinterpret_cast<const float4*>(&k_s[i]);
-        const float4 w4 = *reinterpret_cast<const float4*>(&w_s[i]);
+        // 16 bytes for each half-warp: broadcasts
+        const int i = NK * kg + 4 * q;
+        const float4 r4 = *reinterpret_cast<const float4*>(&r_s[c * D + i]);
+        const float4 k4 = *reinterpret_cast<const float4*>(&k_s[c * D + i]);
+        const float4 w4 = *reinterpret_cast<const float4*>(&w_s[c * D + i]);
         const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
         const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
         const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
@@ -256,13 +244,12 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
       }
 #pragma unroll
       for (int m = 0; m < NC; ++m)
-        if (live[m])
-          part[(g * CH + c) * JT + jj[m]] = (acc[m][0] + acc[m][1]) + (acc[m][2] + acc[m][3]);
+        part[kg * PST + c * JT + cl + 16 * m] = (acc[m][0] + acc[m][1]) + (acc[m][2] + acc[m][3]);
     }
     if (more) store(nbuf);
     __syncthreads();  // the partial outputs are complete; the next chunk is staged
     {
-      // o = sum over the warps' keys of r S, plus v * bonus, as 16-byte rows
+      // o = sum over the key groups of r S, plus v * bonus, as 16-byte rows
       constexpr int N = Pack<T, VEC>::N, ROW = JT / N;
       for (int idx = tid; idx < n * ROW; idx += NT) {
         const int c = idx / ROW, col = (idx % ROW) * N;
@@ -271,7 +258,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
         for (int e = 0; e < N; ++e) {
           float out = 0.f;
 #pragma unroll
-          for (int gg = 0; gg < G; ++gg) out += part[(gg * CH + c) * JT + col + e];
+          for (int gg = 0; gg < G; ++gg) out += part[gg * PST + c * JT + col + e];
           pk.v[e] = from_f32<T>(fmaf(v_s[c * JT + col + e], b_s[c], out));
         }
         T* dst = ob + (t0 + c) * os.s + col;
@@ -289,348 +276,9 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
   }
 #pragma unroll
   for (int n = 0; n < NC; ++n)
-    if (live[n])
 #pragma unroll
-      for (int i = 0; i < NK; ++i) sT[sbase + (NK * g + i) * D + jj[n]] = st[n][i];
+    for (int i = 0; i < NK; ++i) sT[sbase + (NK * kg + i) * D + 16 * n] = st[n][i];
 }
-
-// ---------------------------------------------------------------------------
-// the chunked form: C steps at a time on tensor cores (3xTF32)
-// ---------------------------------------------------------------------------
-
-namespace chunked {
-
-constexpr int C = 16;  // steps a chunk
-#ifndef WKV6_CHUNK_MINB
-#define WKV6_CHUNK_MINB 2
-#endif
-#ifndef WKV6_PROFILE
-#define WKV6_PROFILE 0
-#endif
-#if WKV6_PROFILE
-#define PROF_MARK(i)                 \
-  if (threadIdx.x == 0) {            \
-    const long long t_ = clock64();  \
-    prof[i] += t_ - prof_t;          \
-    prof_t = t_;                     \
-  }
-#else
-#define PROF_MARK(i)
-#endif
-
-template <int D>
-struct Plan {
-  static constexpr int W = D / 16;      // warps: warp w owns state rows and output
-                                        // columns 16 w .. 16 w + 15
-  static constexpr int NT = 32 * W;     // = 2 D: one thread a key for the decays
-  static constexpr int DG = D / 4;      // key groups of 4 for the scores
-  static constexpr int LA = D + 4;      // row strides of the mma operands in
-  static constexpr int LB = D + 8;      // shared memory, free of bank conflicts
-  static constexpr int LS = C + 4;
-  // float offsets in dynamic shared memory
-  static constexpr int R = 0, K = R + C * D, WO = K + C * D, V = WO + C * D;
-  static constexpr int A = V + C * LB, KT = A + C * LA, SC = KT + C * LB;
-  static constexpr int PART = SC + C * LS;  // [C][C][DG + 1] partial scores;
-                                            // the outputs [C][D] after
-  static constexpr int SS = PART + (C * C * (DG + 1) > C * D ? C * C * (DG + 1) : C * D);
-  static constexpr int PC = SS + D * LB, U = PC + D;
-  static constexpr int SMEM = (U + D) * 4;
-  static_assert(2 * D == NT && (C / 2) * DG == NT, "plan");
-};
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both tf32
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32: a = ah + al, b = bh + bl, the al bl term dropped; the
-// small terms first
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
-  mma(c, al, bh);
-  mma(c, ah, bl);
-  mma(c, ah, bh);
-}
-
-// m16n8k8 fragments from f32 shared memory, split into hi and lo.  g = lane /
-// 4, t = lane % 4.  A rows m0.., cols k0.. of a row-major [m][k] (ld apart):
-__device__ __forceinline__ void frag_a(const float* a, int ld, int m0, int k0, uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  split(a[(m0 + g) * ld + k0 + t], hi[0], lo[0]);
-  split(a[(m0 + g + 8) * ld + k0 + t], hi[1], lo[1]);
-  split(a[(m0 + g) * ld + k0 + t + 4], hi[2], lo[2]);
-  split(a[(m0 + g + 8) * ld + k0 + t + 4], hi[3], lo[3]);
-}
-// ... the same A stored transposed, [k][m]:
-__device__ __forceinline__ void frag_at(const float* at, int ld, int m0, int k0, uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  split(at[(k0 + t) * ld + m0 + g], hi[0], lo[0]);
-  split(at[(k0 + t) * ld + m0 + g + 8], hi[1], lo[1]);
-  split(at[(k0 + t + 4) * ld + m0 + g], hi[2], lo[2]);
-  split(at[(k0 + t + 4) * ld + m0 + g + 8], hi[3], lo[3]);
-}
-// B rows k0.., cols n0.. of a row-major [k][n]:
-__device__ __forceinline__ void frag_b(const float* b, int ld, int k0, int n0, uint32_t (&hi)[2],
-                                       uint32_t (&lo)[2]) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  split(b[(k0 + t) * ld + n0 + g], hi[0], lo[0]);
-  split(b[(k0 + t + 4) * ld + n0 + g], hi[1], lo[1]);
-}
-
-// T: r, k, v and o; TW: w; TU: u.  VEC: 16-byte loads and stores.  One block
-// a (batch, head).
-template <int D, typename T, typename TW, typename TU, bool VEC>
-__global__ void __launch_bounds__(Plan<D>::NT, WKV6_CHUNK_MINB)
-wkv6_chunked_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-                    const TW* __restrict__ w, const TU* __restrict__ u,
-                    const float* __restrict__ s0, T* __restrict__ o, float* __restrict__ sT,
-                    Strides rs, Strides ks, Strides vs, Strides ws, Strides os, long long u_sh,
-                    int H, int S) {
-  using PL = Plan<D>;
-  constexpr int NT = PL::NT, DG = PL::DG, LA = PL::LA, LB = PL::LB, LS = PL::LS;
-  extern __shared__ __align__(16) float sm[];
-  float* const r_s = sm + PL::R;     // [C][D] this chunk's r, k, w
-  float* const k_s = sm + PL::K;
-  float* const w_s = sm + PL::WO;
-  float* const v_s = sm + PL::V;     // [C][LB]
-  float* const a_s = sm + PL::A;     // [C][LA]: r_t * prod_{m<t} w_m (inter A)
-  float* const kt_s = sm + PL::KT;   // [C][LB]: k_s * prod_{m>s} w_m (update A^T)
-  float* const sc_s = sm + PL::SC;   // [C][LS]: intra-chunk scores (intra A)
-  float* const part = sm + PL::PART; // [C][C][DG + 1], then the outputs [C][D]
-  float* const s_s = sm + PL::SS;    // [D][LB]: the state entering the chunk (inter B)
-  float* const pc_s = sm + PL::PC;   // [D]: prod of the chunk's w
-  float* const u_s = sm + PL::U;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const T* rb = r + b * rs.b + h * rs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const TW* wb = w + b * ws.b + h * ws.h;
-  T* ob = o + b * os.b + h * os.h;
-  const long long sbase = (static_cast<long long>(b) * H + h) * D * D;
-  const int m0 = 16 * warp;  // this warp's state rows (F) and output columns (E)
-
-  for (int i = tid; i < D; i += NT) u_s[i] = to_f32(u[h * u_sh + i]);
-  // the state in registers, as m16n8 accumulators: sacc[nt] holds rows m0 + g
-  // (0, 1) and m0 + g + 8 (2, 3), cols 8 nt + 2 tq (+1); and in shared memory
-  float sacc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      sacc[nt][e] = s0[sbase + (m0 + g + 8 * (e / 2)) * D + 8 * nt + 2 * tq + e % 2];
-  for (int i = tid; i < D * D; i += NT) s_s[(i / D) * LB + i % D] = s0[sbase + i];
-
-  Stage<T, VEC, D, C, NT> rq, kq, vq;
-  Stage<TW, VEC, D, C, NT> wq;
-  auto load = [&](int t0) {
-    const int n = min(C, S - t0);
-    rq.load(rb, rs.s, t0, n);
-    kq.load(kb, ks.s, t0, n);
-    wq.load(wb, ws.s, t0, n);
-    vq.load(vb, vs.s, t0, n);
-  };
-  // the steps past S add nothing: r = k = v = 0, w = 1
-  auto store = [&]() {
-    rq.store(r_s, D, 0.f);
-    kq.store(k_s, D, 0.f);
-    wq.store(w_s, D, 1.f);
-    vq.store(v_s, LB, 0.f);
-  };
-  load(0);
-  store();
-  __syncthreads();
-#if WKV6_PROFILE
-  long long prof[6] = {0, 0, 0, 0, 0, 0}, prof_t = clock64();
-#endif
-
-  for (int t0 = 0; t0 < S; t0 += C) {
-    const int n = min(C, S - t0);
-    const bool more = t0 + C < S;
-    if (more) load(t0 + C);  // in flight while this chunk runs
-
-    // decays: thread d < D the prefix products down column d, thread D + d
-    // the suffix products
-    if (tid < D) {
-      const int d = tid;
-      float p = 1.f;
-      for (int t = 0; t < C; ++t) {
-        a_s[t * LA + d] = r_s[t * D + d] * p;
-        p *= w_s[t * D + d];
-      }
-      pc_s[d] = p;
-    } else {
-      const int d = tid - D;
-      float q = 1.f;
-      for (int t = C - 1; t >= 0; --t) {
-        kt_s[t * LB + d] = k_s[t * D + d] * q;
-        q *= w_s[t * D + d];
-      }
-    }
-    // scores: thread (pair p, key group kg) sums over its 4 keys, for rows
-    // t = p + 1 and C - 1 - p (the pair has C steps of work, row 0 rides
-    // with the middle pair), the bonus r_t u k_t at s = t and
-    // r_t k_s prod_{m=s+1}^{t-1} w_m for s < t, the decay kept as a running
-    // product (<= 1) walking s down from t - 1
-    {
-      const int pr = tid / DG, kg = tid % DG, d0 = 4 * kg;
-      const float4 u4 = *reinterpret_cast<const float4*>(&u_s[d0]);
-      auto row = [&](int t) {
-        float4 rd = *reinterpret_cast<const float4*>(&r_s[t * D + d0]);
-        const float4 kt = *reinterpret_cast<const float4*>(&k_s[t * D + d0]);
-        part[(t * C + t) * (DG + 1) + kg] =
-            rd.x * u4.x * kt.x + rd.y * u4.y * kt.y + rd.z * u4.z * kt.z + rd.w * u4.w * kt.w;
-#pragma unroll
-        for (int j = 1; j < C; ++j) {  // s = t - j; the rows past s = 0 read row 0 unused
-          const int s = t - j, sc = max(s, 0);
-          const float4 k4 = *reinterpret_cast<const float4*>(&k_s[sc * D + d0]);
-          if (s >= 0)
-            part[(t * C + s) * (DG + 1) + kg] = rd.x * k4.x + rd.y * k4.y + rd.z * k4.z + rd.w * k4.w;
-          const float4 w4 = *reinterpret_cast<const float4*>(&w_s[sc * D + d0]);
-          rd.x *= w4.x;
-          rd.y *= w4.y;
-          rd.z *= w4.z;
-          rd.w *= w4.w;
-        }
-      };
-      row(pr + 1);
-      row(pr + 1 < C - 1 - pr ? C - 1 - pr : 0);
-    }
-    PROF_MARK(0)
-    __syncthreads();
-    PROF_MARK(1)
-    for (int i = tid; i < C * C; i += NT) {
-      const int t = i / C, s = i % C;
-      float acc = 0.f;
-      if (s <= t) {
-#pragma unroll
-        for (int kg = 0; kg < DG; ++kg) acc += part[i * (DG + 1) + kg];
-      }
-      sc_s[t * LS + s] = acc;
-    }
-    __syncthreads();
-    PROF_MARK(2)
-
-    // E: o = A S_prev + scores v, rows t, this warp's 16 columns; even and
-    // odd k-steps in two sums, so the mma chains are half as long
-    float oacc[2][4] = {};
-    {
-      float odd[2][4] = {};
-      uint32_t ah[4], al[4], bh[2], bl[2];
-#pragma unroll 2
-      for (int kk = 0; kk < D; kk += 8) {
-        frag_a(a_s, LA, 0, kk, ah, al);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          frag_b(s_s, LB, kk, m0 + 8 * nt, bh, bl);
-          mma3(kk % 16 ? odd[nt] : oacc[nt], ah, al, bh, bl);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < C; kk += 8) {
-        frag_a(sc_s, LS, 0, kk, ah, al);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          frag_b(v_s, LB, kk, m0 + 8 * nt, bh, bl);
-          mma3(kk % 16 ? odd[nt] : oacc[nt], ah, al, bh, bl);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) oacc[nt][e] += odd[nt][e];
-    }
-    // F: S = diag(pc) S_prev + K~^T v, this warp's 16 rows
-    {
-      const float p0 = pc_s[m0 + g], p1 = pc_s[m0 + g + 8];
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        sacc[nt][0] *= p0;
-        sacc[nt][1] *= p0;
-        sacc[nt][2] *= p1;
-        sacc[nt][3] *= p1;
-      }
-      uint32_t ah[4], al[4], bh[2], bl[2];
-#pragma unroll
-      for (int kk = 0; kk < C; kk += 8) {
-        frag_at(kt_s, LB, m0, kk, ah, al);
-#pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt) {
-          frag_b(v_s, LB, kk, 8 * nt, bh, bl);
-          mma3(sacc[nt], ah, al, bh, bl);
-        }
-      }
-    }
-    PROF_MARK(3)
-    __syncthreads();  // every read of this chunk's staged rows and S_prev is done
-    PROF_MARK(4)
-    float* const o_s = part;  // [C][D]
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o_s[(g + 8 * (e / 2)) * D + m0 + 8 * nt + 2 * tq + e % 2] = oacc[nt][e];
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s_s[(m0 + g + 8 * (e / 2)) * LB + 8 * nt + 2 * tq + e % 2] = sacc[nt][e];
-    if (more) store();
-    __syncthreads();
-    {
-      constexpr int N = Pack<T, VEC>::N, ROW = D / N;
-      for (int idx = tid; idx < n * ROW; idx += NT) {
-        const int c = idx / ROW, col = (idx % ROW) * N;
-        Pack<T, VEC> pk;
-#pragma unroll
-        for (int e = 0; e < N; ++e) pk.v[e] = from_f32<T>(o_s[c * D + col + e]);
-        T* dst = ob + (t0 + c) * os.s + col;
-        if constexpr (VEC) {
-          uint4 u4;
-          memcpy(&u4, pk.v, 16);
-          *reinterpret_cast<uint4*>(dst) = u4;
-        } else {
-          *dst = pk.v[0];
-        }
-      }
-    }
-    // the outputs are read before the next chunk's scores overwrite them
-    __syncthreads();
-    PROF_MARK(5)
-  }
-#if WKV6_PROFILE
-  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0)
-    printf("wkv6 chunked phases (cycles, thread 0 of block 0): decays+scores+bonus %lld, "
-           "wait %lld, reduce %lld, mma %lld, wait %lld, stores+output %lld\n",
-           prof[0], prof[1], prof[2], prof[3], prof[4], prof[5]);
-#endif
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      sT[sbase + (m0 + g + 8 * (e / 2)) * D + 8 * nt + 2 * tq + e % 2] = sacc[nt][e];
-}
-
-}  // namespace chunked
 
 // ---------------------------------------------------------------------------
 // launch
@@ -651,21 +299,11 @@ bool aligned16(const void* p, const Strides& s, size_t elem) {
          (s.h * elem) % 16 == 0 && (s.s * elem) % 16 == 0;
 }
 
-#ifndef WKV6_CHUNKED
-#define WKV6_CHUNKED 0
-#endif
-
 template <int D, typename T, typename TW, typename TU, bool VEC>
 cudaError_t launch_kernel(const Args& a) {
-#if WKV6_CHUNKED
-  using PL = chunked::Plan<D>;
-  auto kern = chunked::wkv6_chunked_kernel<D, T, TW, TU, VEC>;
-  const dim3 grid(a.H, a.B);
-#else
   using PL = Plan<D>;
   auto kern = wkv6_kernel<D, T, TW, TU, VEC>;
   const dim3 grid(D / PL::JT, a.H, a.B);
-#endif
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          PL::SMEM);
   if (err != cudaSuccess) return err;

@@ -84,6 +84,22 @@ def test_rmsnorm_bf16_rows_match_pallas(n, d, sdtype):
     assert _row_rel_err(got, want) <= BF16_ROW_ULP
 
 
+# the kernel walks 8 rows a block: row counts with a tail, at the model
+# widths (the smoke's "tail" cases)
+@pytest.mark.parametrize("n,d,dtype", [(1001, 4096, "float32"),
+                                       (4097, 2048, "bfloat16")])
+def test_rmsnorm_row_tails_match_pallas(n, d, dtype):
+    x, s = _inputs(n, d, seed=11)
+    (jx, js), (tx, ts) = _both(x, s, dtype, dtype)
+    got = tops.rmsnorm(tx, ts)
+    want = jops.rmsnorm(jx, js, impl="pallas")
+    assert got.dtype == TORCH_DT[dtype] and got.shape == (n, d)
+    if dtype == "float32":
+        assert float(np.abs(_f32(got) - _f32(want)).max()) < F32_TOL
+    else:
+        assert _row_rel_err(got, want) <= BF16_ROW_ULP
+
+
 def test_rmsnorm_eps_matters_on_small_rows():
     """Rows of magnitude 1e-3 (mean square 1e-6 against eps 1e-5): the
     port follows the Pallas kernel where eps dominates."""
