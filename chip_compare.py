@@ -2,16 +2,14 @@
 """Side-by-side timing of kernel builds on one card.
 
     python3 chip_compare.py [--tree NAME=DIR[:FLAGS] ...]
-                            [--variant NAME=FLAGS ...]
                             [--kernels rmsnorm,rwkv6_scan] [--rounds N]
                             [--out FILE.json]
 
 Builds each named kernel source (``src/repro_torch/kernels/csrc/<k>.cu``)
-from this checkout ("this"), from each ``--tree`` (another checkout, for
-example the parent commit unpacked with ``git archive``, built with the
-extra nvcc flags after its ":" if any), and from this
-checkout again with each ``--variant``'s extra nvcc flags (for example
-``rows2=-DRMSNORM_ROWS=2``), one ``nvcc`` each, all at once.  Then, on the
+from this checkout ("this") and from each ``--tree`` (another checkout,
+for example the parent commit unpacked with ``git archive``, built with
+the extra nvcc flags after its ":" if any), one ``nvcc`` each, all at
+once.  Then, on the
 main-path shapes of ``chip_smoke.py`` (K3: 4096 x 2048 and 4096 x 4096
 bf16; K2: B=4 H=64 S=1024 D=64, bf16 r/k/v in model layout, f32 w), it
 checks every build against the plain version with the smoke's gates and
@@ -43,17 +41,14 @@ CASES = {"rmsnorm": [(4096, 2048, "bfloat16", "bfloat16", "main", 50),
          "rwkv6_scan": [chip_smoke.RWKV_MAIN + ("bfloat16", "main", 20)]}
 
 
-def builds(trees: dict, variants: dict, kernels: list, workdir: Path):
+def builds(trees: dict, kernels: list, workdir: Path):
     """(kernel, build name) -> library path; one nvcc per library, all at
     once.  trees: name -> (checkout, extra flags)."""
     from repro_torch.kernels import build as kbuild
     nvcc = kbuild.nvcc_path()
     jobs = {}
     for kernel in kernels:
-        todo = [(name, tree, flags) for name, (tree, flags) in trees.items()]
-        todo += [(name, ROOT, flags.split()) for name, flags in
-                 variants.items()]
-        for name, tree, flags in todo:
+        for name, (tree, flags) in trees.items():
             src = tree / CSRC / f"{kernel}.cu"
             lib = workdir / f"lib{kernel}-{name}.so"
             cmd = [nvcc, *kbuild.NVCC_FLAGS, *flags, "-I",
@@ -116,8 +111,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", action="append", default=[],
                     help="NAME=DIR: build the kernels from another checkout")
-    ap.add_argument("--variant", action="append", default=[],
-                    help="NAME=FLAGS: this checkout with extra nvcc flags")
     ap.add_argument("--kernels", default="rmsnorm,rwkv6_scan")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--out", default=None)
@@ -131,14 +124,13 @@ def main(argv=None) -> int:
         name, path = spec.split("=", 1)
         path, _, flags = path.partition(":")
         trees[name] = (Path(path).resolve(), flags.split())
-    variants = dict(spec.split("=", 1) for spec in args.variant)
     kernels = args.kernels.split(",")
     report = {"card": chip_smoke.card_line(), "torch": torch.__version__,
               "kernels": {}}
     bad = []
     with tempfile.TemporaryDirectory() as tmp:
-        libs, logs = builds(trees, variants, kernels, Path(tmp))
-        names = list(trees) + list(variants)
+        libs, logs = builds(trees, kernels, Path(tmp))
+        names = list(trees)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
         for kernel in kernels:

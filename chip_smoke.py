@@ -195,7 +195,8 @@ def rwkv_cases():
     ``forward`` (the main-path row of the kernels record); "ragged" S=1000;
     "long" decays in (0.951, 0.99988), the long memory of trained rwkv6
     layers; "chain" two halves with the carried state against one scan;
-    "short" S=17, shorter than one staged chunk; "underflow" w = 0.01 over
+    "short" S=17, shorter than the TPU kernel's chunk of 32 (one staged
+    chunk of 16 and a ragged step); "underflow" w = 0.01 over
     steps 32-95, a whole chunk whose decay product underflows to 0; "d16"
     and "d128" the smallest and largest head dims, at ragged lengths."""
     cases = [(B, H, S, D, dt, "sweep", 10) for (B, H, S, D) in RWKV_SWEEP

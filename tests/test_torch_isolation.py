@@ -1,5 +1,6 @@
 """The port stands alone: no ``jax`` and no ``repro`` import, anywhere in
-``src/repro_torch``, ``chip_smoke.py`` or ``chip_mutants.py``, and it
+``src/repro_torch``, ``chip_smoke.py``, ``chip_mutants.py`` or
+``chip_compare.py``, and it
 serves and schedules with both blocked."""
 import ast
 import os
@@ -24,7 +25,8 @@ def _imported_roots(path: Path):
 
 def test_no_jax_or_repro_imports():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "chip_mutants.py"]
+    files += [REPO / "chip_smoke.py", REPO / "chip_mutants.py",
+              REPO / "chip_compare.py"]
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"src/repro_torch/models/rwkv.py",
             "src/repro_torch/kernels/rwkv6_scan.py",
