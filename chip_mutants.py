@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
 import subprocess
 import sys
@@ -167,16 +168,18 @@ def mutate(src: str, old: str, new: str, mark) -> str:
 
 
 def build(sources: dict, workdir: Path) -> dict:
-    """One nvcc per source, all at once; returns name -> library path."""
+    """One nvcc per source, all at once.  sources: name -> (text of a
+    ``.cu`` file, the directory its includes are found in); returns name ->
+    library path."""
     from repro_torch.kernels import build as kbuild
     nvcc = kbuild.nvcc_path()
     procs = {}
-    for name, text in sources.items():
+    for name, (text, include) in sources.items():
         cu = workdir / f"{name}.cu"
         cu.write_text(text)
         lib = workdir / f"lib{name}.so"
         procs[name] = (lib, subprocess.Popen(
-            [nvcc, *kbuild.NVCC_FLAGS, "-I", str(kbuild.CSRC), "-o",
+            [nvcc, *kbuild.NVCC_FLAGS, "-I", str(include), "-o",
              str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
@@ -187,6 +190,14 @@ def build(sources: dict, workdir: Path) -> dict:
                                f"{log}")
         out[name] = lib
     return out
+
+
+def swapped(kernel: str, lib: Path):
+    """A context in which the wrapper of ``kernel`` (a module of
+    ``repro_torch.kernels``) launches the kernel of the library at
+    ``lib`` in place of the repository's build."""
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    return mock.patch.object(mod, "_fn", mod.bind(ctypes.CDLL(str(lib))))
 
 
 _SCHED_TABLES = {}
@@ -208,15 +219,10 @@ def run_cases(kernel: str, lib: Path) -> list:
     inputs (seed 0): K1's bfloat16 cases, every K2 and K3 case, or K4's
     and K5's fig5 tables."""
     import torch
-    from repro_torch.kernels import (commit_scan, find_alloc,
-                                     flash_attention, rmsnorm, rwkv6_scan)
-    mod = {"flash_attention": flash_attention, "rwkv6_scan": rwkv6_scan,
-           "rmsnorm": rmsnorm, "find_alloc": find_alloc,
-           "commit_scan": commit_scan}[kernel]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
-    with mock.patch.object(mod, "_fn", mod.bind(ctypes.CDLL(str(lib)))):
+    with swapped(kernel, lib):
         if kernel == "flash_attention":
             for case in chip_smoke.kernel_cases():
                 if case[5] == "bfloat16":
@@ -259,8 +265,8 @@ def main(argv=None) -> int:
             what[(kernel, name)] = desc
     report, bad = {}, []
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build({f"{k}-{n}": text for (k, n), text in sources.items()},
-                     Path(tmp))
+        libs = build({f"{k}-{n}": (text, kbuild.CSRC)
+                      for (k, n), text in sources.items()}, Path(tmp))
         for (kernel, name) in sources:
             rows = run_cases(kernel, libs[f"{kernel}-{name}"])
             failing = [r for r in rows if not r["ok"]]

@@ -13,7 +13,7 @@
 // by bytes, and the design is about keeping bytes in flight.
 //
 // Design.  The TPU kernel tiles 256 rows a grid step and pads the row count
-// to a multiple of 256; here a block of 256 threads walks ROWS = 8
+// to a multiple of 256; here a block of 256 threads walks ROWS = 2
 // consecutive rows (the last block masks the tail), so any number of rows
 // runs unpadded.  Two forms:
 // - the register form (`rmsnorm_rows_kernel`), for rows of exactly VPT
@@ -31,12 +31,16 @@
 //   x.  Pass 1 sums squares, pass 2 reads the row again (an L1/L2 hit) and
 //   stores.
 // Measured with chip_compare.py on one NVIDIA H100 80GB HBM3, 700.00 W
-// (PERF.md, PR 18), x read from device memory: the register form took
-// 0.0112 ms at 4096 x 2048 bf16 and 0.0248 ms at 4096 x 4096, where one
-// block a row for every width (the form before) took 0.0144 and 0.0295, and
-// F.rms_norm 0.0146 and 0.0300; 2 or 4 rows a block were within 10% of 8,
-// 16 slower, the hints worth 3-8%.  A warp per row (one pass, PR 15) was
-// slower at 4096: its registers cut the resident warps.  Rows are read
+// (PERF.md, PR 18), K3's mean device time inside a kernel-path forward
+// (x just written by the layer before), llama3.2-1b
+// (2048 wide) / rwkv6-7b (4096): 2 rows a block 0.00850 / 0.01891 ms, 4
+// rows 0.00909 / 0.01924, 8 rows 0.00980 / 0.02005, one block a row (the
+// form before) 0.01176 / 0.02748; without the hints 2 rows read 0.00887 /
+// 0.02233 and 8 rows 0.00984 / 0.02105, so the hints stay.  On x read from
+// device memory the order of 2, 4 and 8 rows changes from run to run
+// (0.0111-0.0118 ms at 4096 x 2048); the form before read 0.0143 and
+// F.rms_norm 0.0145.  A warp per row (one pass, PR 15) was slower at
+// 4096: its registers cut the resident warps.  Rows are read
 // through a row stride with the last dim contiguous, so a strided view is
 // read in place.  bf16 converts only through the intrinsics.
 #include <cuda_runtime.h>
@@ -49,7 +53,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // rows a block of the register form walks
-constexpr int ROWS = 8;
+constexpr int ROWS = 2;
 
 // x loads and out stores of the register form: 16-byte vectors with
 // streaming hints (each byte is read or written once)

@@ -47,8 +47,9 @@
 // bonus), 5.4 GFLOP: 0.080 ms at 67 TFLOP/s of f32 CUDA cores.  So the bound
 // is 0.080 ms, by operations.  A step is 3 f32 instructions an element
 // (FMUL, FFMA, FFMA), 0.10 ms of issue at the card's f32 rate; the kernel
-// runs at about 3x that: with 8 warps an SM (two blocks) the step loop
-// does not keep the f32 pipes busy.
+// runs at about 3x that.  Why is not measured (no profile of the step
+// loop); a guess is that 8 warps an SM (two blocks) are too few to keep
+// the f32 pipes busy.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
