@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Side-by-side timing of K2 and K3 built from several checkouts, on one card.
+"""Side-by-side timing of K2, K3 or K5 built from several checkouts, on one card.
 
     python3 chip_compare.py [--tree NAME=DIR ...] [--kernels rmsnorm,rwkv6_scan]
                             [--rounds N] [--out FILE.json]
+    python3 chip_compare.py --tree base=DIR --kernels commit_scan
 
 Builds each named kernel (``src/repro_torch/kernels/csrc/<k>.cu``) from
 this checkout ("this") and from each ``--tree`` (another checkout: the
@@ -10,13 +11,14 @@ parent commit unpacked with ``git archive``, or a copy with one constant
 changed) through ``chip_mutants.build``, one ``nvcc`` each, all at once.
 Each build is checked with the smoke's gates on the main-path shapes of
 ``chip_smoke.py`` (K3: 4096 x 2048 and 4096 x 4096 bf16; K2: B=4 H=64
-S=1024 D=64, bf16 r/k/v in model layout, f32 w), then timed through
-``chip_mutants.swapped``, the builds in turn, forwards then backwards,
-``--rounds`` times:
+S=1024 D=64, bf16 r/k/v in model layout, f32 w; K5: the fig5 n=2048 grown
+and bursty tables, ``chip_smoke.commit_scan_check``: bitwise, twice), then
+timed through ``chip_mutants.swapped``, the builds in turn, forwards then
+backwards, ``--rounds`` times:
 
-- "cold": on the card alone (``chip_smoke.device_ms``), K3's x cycled
-  through copies past L2 (``chip_smoke.cold_copies``), as the smoke's
-  ``ms``;
+- "cold": on the card alone (``chip_smoke.device_ms``), K3's x and K5's
+  tables cycled through copies past L2 (``chip_smoke.cold_copies``), as
+  the smoke's ``ms``;
 - "warm" (K3): back to back on one x, once on each of those copies: how
   much of x the L2 keeps between calls depends on where x lies, so one
   allocation is not a reading;
@@ -28,7 +30,7 @@ S=1024 D=64, bf16 r/k/v in model layout, f32 w), then timed through
   kernel leaves in L2 for the next one.
 
 For K3, ``F.rms_norm`` takes its cold and warm turns beside the builds (a
-yardstick only).  Reports every time and each median; exits non-zero if a
+yardstick only).  K5 has no forward: it is timed cold only.  Reports every time and each median; exits non-zero if a
 build fails a gate.  Needs a card.
 """
 from __future__ import annotations
@@ -49,7 +51,8 @@ CSRC = Path("src/repro_torch/kernels/csrc")
 # kernel -> its standalone main-path cases
 CASES = {"rmsnorm": [(4096, 2048, "bfloat16", "bfloat16", "main", 50),
                      (4096, 4096, "bfloat16", "bfloat16", "rwkv", 50)],
-         "rwkv6_scan": [chip_smoke.RWKV_MAIN + ("bfloat16", "main", 20)]}
+         "rwkv6_scan": [chip_smoke.RWKV_MAIN + ("bfloat16", "main", 20)],
+         "commit_scan": [(2048, "grown", 10), (2048, "bursty", 10)]}
 # kernel -> (a part of its CUDA kernels' names, [(model, layers)]): the
 # forwards it is timed in
 FORWARDS = {"rmsnorm": ("rmsnorm", [("llama3.2-1b", 4), ("rwkv6-7b", 2)]),
@@ -93,6 +96,24 @@ def in_forward_ms(call, name: str, reps: int = 3) -> tuple:
     return ms, sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
 
 
+def _commit_scan_case(case):
+    """K5's check and cold timer on the fig5 tables of ``case``: every
+    launch on its own copy of the inputs, copies cycled past L2."""
+    from repro_torch.core.dp import COMM_COST_FRAC
+    from repro_torch.kernels import commit_scan as ck
+    n, topo, iters = case
+    tab = chip_smoke.sched_tables(n, topo)[1]
+    _, args, out, _, plain = chip_smoke.commit_scan_check(tab)
+    kw = (tab["n_nodes"], COMM_COST_FRAC, tab["wmax"])
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *out))
+    copies = zip(*(chip_smoke.cold_copies(t, nbytes) for t in args))
+    calls = [lambda c=c, o=[t.clone() for t in out]: ck.launch(c, o, *kw)
+             for c in copies]
+    return (lambda: chip_smoke.commit_scan_check(tab, plain)[0],
+            {"cold": lambda: [chip_smoke.device_ms(chip_smoke.cycled(calls),
+                                                   iters)]}, {})
+
+
 def _case(kernel: str, case, gen):
     """(check(): one call's errors by the smoke's gates, {mode: timer},
     {mode: library timer}); a timer returns a list of ms."""
@@ -102,6 +123,8 @@ def _case(kernel: str, case, gen):
     from repro_torch.kernels import rwkv6_scan as rk
     dev_ms = chip_smoke.device_ms
     iters = case[-1]
+    if kernel == "commit_scan":
+        return _commit_scan_case(case)
     if kernel == "rwkv6_scan":
         args = chip_smoke.rwkv_inputs(case, gen)
         want, want_s = ref.rwkv6_scan_ref(*args)
@@ -189,7 +212,7 @@ def main(argv=None) -> int:
                     f"{n} {m}": {"ms": t, "median_ms": statistics.median(t),
                                  **checks.get(n, {})}
                     for (n, m), t in times.items()}
-            part, models = FORWARDS[kernel]
+            part, models = FORWARDS.get(kernel, (None, []))
             for arch, layers in models:
                 call = forward_call(arch, layers)
                 times = _timed(list(trees), libs, kernel, {

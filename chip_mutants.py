@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Mutation check of the kernel gates of ``chip_smoke.py``, on one card.
 
-    python3 chip_mutants.py [--out FILE.json]
+    python3 chip_mutants.py [--kernels NAME,...] [--out FILE.json]
 
 Plants one fault at a time in a copy of a kernel source from
 ``src/repro_torch/kernels/csrc/``, builds every copy in a temporary
@@ -19,7 +19,9 @@ cases through each build with the smoke's own checks:
 - the scheduler kernels (K4 ``find_alloc``, K5 ``commit_scan``): faults
   anywhere in the source, run on the fig5 tables of every size and
   topology of the kernel phase through ``chip_smoke.find_alloc_check`` and
-  ``commit_scan_check`` (bitwise; one ulp on a spread payoff).
+  ``commit_scan_check`` (bitwise; one ulp on a spread payoff; K5 twice,
+  bitwise deterministic, and also on the smoke's further K5 cases,
+  ``chip_smoke.EXTRA_K5``).
 
 The unchanged sources run first as the controls.  A fault is caught when
 at least one case exceeds its limit.  Exits non-zero if a control fails or
@@ -146,6 +148,29 @@ COMMIT_SCAN_MUTANTS = {
     "mu_gate_inverted": ("const bool ok = v1 > 0.0;",
                          "const bool ok = !(v1 > 0.0);",
                          "the mu_j > 0 admission gate is inverted"),
+    "stale_stage": (
+        "Wn = a.W[p + 1];", "Wn = a.W[p];",
+        "the gang size loaded a step ahead is the previous job's"),
+    "count_skip_at_W": (
+        "if (n >= Wi) { k0 = r + 1; break; }",
+        "if (n > Wi) { k0 = r + 1; break; }",
+        "a prefix with exactly W eligible units is counted, not walked"),
+    "floor_free": ("(gamma) + ceil(free)", "(gamma) + floor(free)",
+                   "a key's window holds floor(free) units, not ceil(free)"),
+    "fast_by_count": (
+        "if (k0 > R && static_cast<double>(s.ucap[par]) < W) {",
+        "if (k0 > R) {",
+        "a step whose prefixes all count fewer than W units ends without "
+        "looking at its node rows' free units"),
+    "sweep_past_stop": (
+        "if (a.Kj[q] > 0 && !(a.W[q] >= 1.0)) atomicMin(s.stop, q);",
+        "if (false) atomicMin(s.stop, q);",
+        "once no unit is free, the sweep also writes the jobs that ask for "
+        "none"),
+    "chunk_tail_dropped": (
+        "return more && (c + 1) * kChunk < a.L;",
+        "return more && (c + 2) * kChunk <= a.L;",
+        "a walk never takes the last pool chunk when it is partial"),
 }
 # kernel -> its faults and the part of its source they go in (after the
 # marker, or all of it)
@@ -201,16 +226,21 @@ def swapped(kernel: str, lib: Path):
 
 
 _SCHED_TABLES = {}
+_PLAIN = {}  # case -> what the first K5 check on it returned last
 
 
 def sched_tables() -> dict:
-    """(n, topo) -> (K4 tables, K5 tables) of the kernel phase, built
-    once."""
+    """(n, topo) -> (K4 tables, K5 tables) of the kernel phase, and
+    (kind, arg) -> (None, K5 tables) for K5's further cases
+    (``chip_smoke.EXTRA_K5``), built once."""
     if not _SCHED_TABLES:
         for n in chip_smoke.SCHED_SIZES:
             for topo in ("grown", "bursty"):
                 _SCHED_TABLES[(n, topo)] = chip_smoke.sched_tables(
                     n, topo)[:2]
+        for kind, arg in chip_smoke.EXTRA_K5:
+            _SCHED_TABLES[(kind, arg)] = (None,
+                                          chip_smoke.extra_tables(kind, arg))
     return _SCHED_TABLES
 
 
@@ -239,24 +269,33 @@ def run_cases(kernel: str, lib: Path) -> list:
         else:
             check = (chip_smoke.find_alloc_check if kernel == "find_alloc"
                      else chip_smoke.commit_scan_check)
-            for (n, topo), tabs in sched_tables().items():
-                verdict = check(tabs[kernel == "commit_scan"])[0]
-                rows.append({"case": [n, topo], **verdict})
+            for case, tabs in sched_tables().items():
+                if kernel == "find_alloc":
+                    if tabs[0] is not None:
+                        rows.append({"case": list(case),
+                                     **check(tabs[0])[0]})
+                    continue
+                res = check(tabs[1], _PLAIN.get(case))
+                _PLAIN[case] = res[4]
+                rows.append({"case": list(case), **res[0]})
     return rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="the kernels whose faults to plant (default: all)")
     ap.add_argument("--out", default=None,
                     help="also write every reading to this JSON file")
     args = ap.parse_args(argv)
+    kernels = {k: KERNELS[k] for k in args.kernels.split(",")}
     import torch
     if not torch.cuda.is_available():
         print("chip_mutants: CUDA is not available", file=sys.stderr)
         return 1
     from repro_torch.kernels import build as kbuild
     sources, what = {}, {}
-    for kernel, (mutants, mark) in KERNELS.items():
+    for kernel, (mutants, mark) in kernels.items():
         src = (kbuild.CSRC / f"{kernel}.cu").read_text()
         sources[(kernel, "control")] = src
         what[(kernel, "control")] = "unchanged"
@@ -306,7 +345,7 @@ def main(argv=None) -> int:
         print(f"chip_mutants: wrong verdict for {bad}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "caught": {
-        kernel: sorted(mutants) for kernel, (mutants, _) in KERNELS.items()}}))
+        kernel: sorted(mutants) for kernel, (mutants, _) in kernels.items()}}))
     return 0
 
 

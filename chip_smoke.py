@@ -45,8 +45,17 @@ exits non-zero.
    K4, K5: the host tables of the first K4 launch and of a K5 launch over
    the whole greedy order of the fig5 round (n = 256, 1024, 2048; grown
    cluster and bursty 3-pod topology): every result bitwise equal to the
-   plain version's, a spread payoff within one ulp (reported).  First the
-   running NumPy is checked to sum float64 in the order both replicate.
+   plain version's, a spread payoff within one ulp (reported).  K5 also
+   runs on the n=256 grown tables with a fractional carry (0.5 added to,
+   and taken from, every third key's free: ``frac_tables``) and on two
+   seeded tables with pools in random order (``random_tables``: walks that
+   reach a partial last chunk or go 9 chunks deep; one with every window
+   cut at the last unit), and on a shape whose
+   count and block-walk arrays do not fit, where the launch walks a warp
+   per prefix (``lean_tables``); every K5 case
+   runs twice and must be bitwise deterministic; its row gives the
+   microseconds a step.  First the running NumPy is checked to sum float64
+   in the order both replicate.
 2. prefill -- llama3.2-1b ``forward`` on 4 x 1024 tokens in bf16,
    through the kernels (``attn_impl="pallas"``) and through the einsum
    path (``"xla"``), each timed as the median of ``FORWARD_REPS`` calls.
@@ -156,6 +165,15 @@ RMS_CASES = [(4096, 2048, "bfloat16", "bfloat16", "main", 50),
 # last burst.  The main row of the kernels record is n=2048 on grown.
 SCHED_SIZES = (256, 1024, 2048)
 SCHED_MAIN = (2048, "grown")
+# K5's further cases: a fractional carry, the n=256 grown tables with 0.5
+# added to and taken from every third key's free (``frac_tables``); random
+# pool orders over n_nodes = 80 (L = 1012, walks into a partial last
+# chunk) and 170 (L = 2176, walks of up to 9 chunks) node rows
+# (``random_tables``); the first of those with every window cut at the last
+# unit ("cut"); and a shape too large for the count's and the block walk's
+# shared memory (``lean_tables``, seed 0)
+EXTRA_K5 = (("frac", 0.5), ("frac", -0.5), ("random", 80), ("random", 170),
+            ("cut", 80), ("lean", 0))
 # the decision-latency sweep of the schedule phase (both solvers)
 SWEEP_SIZES = (64, 256, 1024, 2048)
 SIM_JOBS = 256
@@ -783,10 +801,12 @@ def find_alloc_check(tab):
     return _compare(out, want, FIND_ALLOC_OUT, ("sp_pay",)), args, out
 
 
-def commit_scan_check(tab):
-    """K5 on the card against its plain version on the same tables.
-    Returns (verdict, args, the kernel's results, per-step pool reads of
-    the plain version)."""
+def commit_scan_check(tab, plain=None):
+    """K5 on the card, twice, against its plain version on the same
+    tables; the two launches must agree bitwise.  ``plain``: the last
+    item an earlier call on these tables returned, reused.  Returns
+    (verdict, args, the kernel's results, per-step pool reads of the
+    plain version, (the plain version's results, those reads))."""
     import torch
     from repro_torch.core import batch_solver as bs
     from repro_torch.core.dp import COMM_COST_FRAC
@@ -796,11 +816,34 @@ def commit_scan_check(tab):
                   *(tab[k] for k in bs.COMMIT_SCAN_ARGS))
     kw = (tab["n_nodes"], COMM_COST_FRAC, tab["wmax"])
     out = ck.commit_scan(*args, *kw)
+    again = ck.commit_scan(*args, *kw)
     torch.cuda.synchronize()
-    need = []
-    want = ref.commit_scan_ref(*args, *kw, need=need)
-    return (_compare(out, want, COMMIT_SCAN_OUT, ("win2_pay",)), args, out,
-            need)
+    if plain is None:
+        need = []
+        plain = (ref.commit_scan_ref(*args, *kw, need=need), need)
+    verdict = _compare(out, plain[0], COMMIT_SCAN_OUT, ("win2_pay",))
+    verdict["deterministic"] = all(
+        torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+        for x, y in zip(out, again))
+    verdict["ok"] = verdict["ok"] and verdict["deterministic"]
+    return verdict, args, out, plain[1], plain
+
+
+def frac_tables(delta: float, n: int = 256, topo: str = "grown"):
+    """The K5 tables of ``sched_tables(n, topo)`` with ``delta`` added to
+    every third key's free (keys with at least one free unit when delta
+    is negative): a fractional carry.  Adding 0.5 pushes a key's window
+    past the last unit C - 1 (gamma + free = C at the fig5 state), where
+    it is cut; taking 0.5 leaves ceil(free) units inside it."""
+    import numpy as np
+    tab = dict(sched_tables(n, topo)[1])
+    free = tab["free"].copy()
+    keys = np.arange(0, len(free), 3)
+    if delta < 0:
+        keys = keys[free[keys] >= 1.0]
+    free[keys] += delta
+    tab["free"] = free
+    return tab
 
 
 def _time_bound(nbytes: float, flops: float):
@@ -846,9 +889,10 @@ def commit_scan_bound(tab, need) -> tuple:
     """Least time for one K5 launch: the state, the tables and each step's
     rows read once, each step's pool read (s_m, s_u, s_rank) through the
     W-th eligible unit of its longest prefix walk as the plain version
-    counted it, and the counts written once; or its float64 operations
-    per step (prefix sums, unit-price sums, the chosen units' sums)."""
-    import numpy as np
+    counted it (none for a prefix with fewer than W eligible units: the
+    carry tells), the chosen units' price and node, and the counts
+    written once; or its float64 operations per step (prefix sums,
+    unit-price sums, the chosen units' sums)."""
     B, M = tab["rank"].shape
     R = tab["u_tab"].shape[1]
     N = tab["n_nodes"]
@@ -856,7 +900,7 @@ def commit_scan_bound(tab, need) -> tuple:
     nbytes = (2 * (tab["free"].nbytes + tab["gamma"].nbytes)
               + tab["P_tab"].nbytes + tab["node_row"].nbytes
               + B * (8 + 4 + 1 + M * 4 + R * 8)
-              + int(np.sum(need)) * 12 + int(W.sum()) * R * 12
+              + sum(r for r, _ in need) * 12 + sum(c for _, c in need) * 12
               + B * (1 + 4 + M * 4 + 4 + 8 + R * 4))
     flops = B * (N * R * 6 + int(W.max(initial=0)) * (M + R))
     return _time_bound(nbytes, flops) + (nbytes, flops)
@@ -896,13 +940,117 @@ def sched_case(n: int, topo: str):
                **verdict, "ms": ms, "wrapper_ms": wrapper_ms,
                "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound[0],
                "bound_by": bound[1], "bytes": bound[2], "flops": bound[3]}
+        step = ""
+        if name == "commit_scan":  # B steps, one a row of the job bucket
+            row["us_per_step"] = ms * 1e3 / B
+            step = (f"us_per_step={row['us_per_step']:.3f} deterministic="
+                    f"{verdict['deterministic']} ")
         log(f"[kernel] {name} n={n} {topo:6s} B={B} M={M} N={row['N']} "
             f"L={row['L']} bitwise={not verdict['mismatched']} "
             f"pay_ulps={verdict['pay_ulps']} kernel_ms={ms:.4f} "
-            f"wrapper_ms={wrapper_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"wrapper_ms={wrapper_ms:.4f} plain_ms={plain_ms:.4f} {step}"
             f"bound_ms={bound[0]:.5f} ({bound[1]})")
         rows.append(row)
     return rows
+
+
+def _random_keys(seed: int, n_nodes: int, R: int):
+    """(the generator, node row and type of each key) of ``random_tables``:
+    each node row holds 1-R of R types, a key per node and type."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    has = rs.rand(n_nodes, R) < 0.7
+    has[np.arange(n_nodes), rs.randint(0, R, n_nodes)] = True
+    node_row, ktype = np.nonzero(has)
+    return rs, node_row, ktype
+
+
+def lean_tables(seed: int = 0, R: int = 4, wmax: int = 8) -> dict:
+    """``random_tables`` of 32 jobs at the fewest node rows from 1500 on
+    whose count and block-walk arrays no longer fit in a block's shared
+    memory beside the rest (``commit_scan_smem`` of the built kernel), so
+    that the launch walks a warp per prefix without counting."""
+    import ctypes
+    from repro_torch.kernels import build
+    size = build.load("commit_scan").commit_scan_smem
+    size.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    size.restype = ctypes.c_longlong
+    full = ctypes.c_int()
+    for n in range(1500, 4000):
+        size(len(_random_keys(seed, n, R)[1]), n, R, wmax, ctypes.byref(full))
+        if not full.value:
+            return random_tables(seed, n, jobs=32, R=R, wmax=wmax)
+    raise RuntimeError("lean_tables: every shape tried fits the full layout")
+
+
+def extra_tables(kind: str, arg) -> dict:
+    """The K5 tables of one of ``EXTRA_K5``; "cut": ``random_tables`` with
+    0.5 added to every key's free, so that every window is cut at the last
+    unit and a node row can be feasible with fewer than W units in windows
+    (free 1.5 over one unit, or 0.5 over none once a unit is taken)."""
+    if kind == "frac":
+        return frac_tables(arg)
+    if kind == "lean":
+        return lean_tables(arg)
+    tab = random_tables(0, arg)
+    if kind == "cut":
+        tab["free"] = tab["free"] + 0.5
+    return tab
+
+
+def random_tables(seed: int, n_nodes: int, jobs: int = 512, R: int = 4,
+                  C: int = 4, wmax: int = 8) -> dict:
+    """Seeded K5 tables whose pools lie in random order over a sparse
+    carry: ``n_nodes`` node rows with 1-4 of R types each (a key per
+    node and type, C units, one free: gamma = C - 1), gangs of 1-8,
+    1-R usable types in random preference order, a fifth of the jobs
+    single-node, and a twentieth (drawn from seed + 1) asking for no unit:
+    their empty spread slot is a candidate, also once no unit is left.  A pool in price order ends in a job's unusable units, so
+    the fig5 walks end early (by entry 1020 of 1272 at n=2048 bursty);
+    here the W-th eligible unit lies anywhere, and as the free units run
+    out walks reach the pool's last, partial chunk and past the chunks the
+    kernel stages.  The tables keep ``scan_tables``' invariants (the pool
+    is the whole (key, unit) table; s_rank = rank[s_m], s_node =
+    node_row[s_m])."""
+    import numpy as np
+    rs, node_row, ktype = _random_keys(seed, n_nodes, R)
+    M = len(node_row)
+    P_tab = np.cumsum(rs.uniform(0.5, 1.5, (M, C)), axis=1)
+    Kj = rs.randint(1, R + 1, jobs).astype(np.int32)
+    rank_t = np.full((jobs, R), R, dtype=np.int32)
+    for p in range(jobs):
+        rank_t[p, rs.permutation(R)[:Kj[p]]] = np.arange(Kj[p])
+    rank = np.ascontiguousarray(rank_t[:, ktype])
+    u_tab = np.sort(rs.uniform(1.0, 30.0, (jobs, R)), axis=1)[:, ::-1]
+    u_tab = np.where(np.arange(R)[None] < Kj[:, None], u_tab, 0.0)
+    order = np.argsort(rs.rand(jobs, M * C), axis=1, kind="stable")
+    s_m = (order // C).astype(np.int32)
+    W = rs.randint(1, wmax + 1, jobs).astype(float)
+    W[np.random.RandomState(seed + 1).rand(jobs) < 0.05] = 0.0
+    return {"free": np.ones(M), "gamma": np.full(M, C - 1, dtype=np.int32),
+            "P_tab": P_tab, "node_row": node_row.astype(np.int32),
+            "W": W, "Kj": Kj,
+            "single": rs.rand(jobs) < 0.2, "rank": rank, "u_tab": u_tab,
+            "s_m": s_m, "s_u": (order % C).astype(np.int32),
+            "s_rank": np.take_along_axis(rank, s_m, axis=1),
+            "s_price": P_tab.reshape(-1)[order],
+            "s_node": node_row[s_m].astype(np.int32), "n_nodes": n_nodes,
+            "wmax": wmax, "C": C}
+
+
+def extra_case(kind: str, arg) -> dict:
+    """K5 on ``extra_tables(kind, arg)``, checked as ``sched_case`` checks
+    it (raises on a difference); not timed."""
+    tab = extra_tables(kind, arg)
+    verdict = commit_scan_check(tab)[0]
+    if not verdict["ok"]:
+        raise RuntimeError(f"commit_scan disagrees with its plain version "
+                           f"on the {kind} tables ({arg}): {verdict}")
+    log(f"[kernel] commit_scan {kind} {arg:+} B={len(tab['W'])} "
+        f"M={len(tab['free'])} L={tab['s_m'].shape[1]}: bitwise="
+        f"{not verdict['mismatched']} pay_ulps={verdict['pay_ulps']} "
+        f"deterministic={verdict['deterministic']}")
+    return {"kernel": "commit_scan", "case": [kind, arg], **verdict}
 
 
 def numpy_sum_check(seed: int) -> int:
@@ -937,6 +1085,7 @@ def phase_kernel(seed: int):
         f"{numpy_sum_check(seed)} rows")
     sched_rows = [row for n in SCHED_SIZES for topo in ("grown", "bursty")
                   for row in sched_case(n, topo)]
+    sched_rows += [extra_case(*case) for case in EXTRA_K5]
     main = {"flash_attention": next(r for r in rows if r["model_layout"]),
             "rwkv6_scan": next(r for r in rwkv_rows if r["kind"] == "main"),
             "rmsnorm": next(r for r in rms_rows if r["kind"] == "main")}
@@ -1417,6 +1566,7 @@ def main(argv=None) -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
                for name, (replaces, launches) in paths.items()]
+    kernels[-1]["us_per_step"] = main_rows["commit_scan"]["us_per_step"]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

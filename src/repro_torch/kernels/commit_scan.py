@@ -45,7 +45,11 @@ def commit_scan(free, gamma, P_tab, node_row, W, Kj, single, rank, u_tab,
     """The greedy commit of B jobs in order on the card, in one block;
     see ``ref.commit_scan_ref`` for the arguments and the results.
     ``wmax`` (at most ``find_alloc.MAX_W``) must be at least the largest
-    gang in ``W``."""
+    gang in ``W``.  The tables are those ``core.batch_solver.scan_tables``
+    builds: each job's pool is its whole (key, unit) table, with
+    ``s_rank = rank[s_m]`` and ``s_node = node_row[s_m]``, since the
+    kernel counts a prefix's eligible units from the carry before it
+    walks the pool (``csrc/commit_scan.cu``)."""
     B, M = rank.shape
     R = u_tab.shape[1]
     L = s_m.shape[1]

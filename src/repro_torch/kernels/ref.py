@@ -242,8 +242,11 @@ def commit_scan_ref(free, gamma, P_tab, node_row, W, Kj, single, rank,
     k*(N+1)+h, h = N for the spread slot), counts (B, M) int32 (units
     committed per key), win2 (B,) int32 and win2_pay (B,) f64 (the
     runner-up), sp_nserv (B, R) int32.  With a list ``need``, appends
-    per job the length of the pool prefix the job had to read (for a
-    data-dependent bound)."""
+    per job what it had to read of its pool (for a data-dependent bound):
+    (the length of the pool prefix through the W-th eligible unit of its
+    longest walk, the units its walks choose).  A prefix with fewer than
+    W eligible units reads nothing: its count, its servers and its
+    refusal follow from the carry alone."""
     B, M = rank.shape
     R = u_tab.shape[1]
     N = n_nodes
@@ -281,12 +284,12 @@ def commit_scan_ref(free, gamma, P_tab, node_row, W, Kj, single, rank,
         ks = torch.arange(1, R + 1, device=dev)[:, None]
         elig = in_window[None, :] & (s_rank[p][None, :] < ks)   # (R, L)
         pos, valid, n_elig = _first_w(elig, wi.expand(R), wmax)
-        if need is not None:  # through the W-th eligible unit, or all
+        if need is not None:  # the prefixes with at least W eligible units
             w = int(wi)
-            last = (torch.where(n_elig >= wi, pos[:, w - 1],
-                                s_m.shape[1] - 1).max() if w and int(kj)
-                    else torch.tensor(-1))
-            need.append(int(last) + 1)
+            walked = n_elig >= wi
+            reach = (int(torch.where(walked, pos[:, w - 1] + 1, 0).max())
+                     if w and int(kj) else 0)
+            need.append((reach, w * int(walked.sum()) if int(kj) else 0))
         g_m = s_m[p][pos].long()
         cost = pairwise_sum(torch.where(valid, s_price[p][pos], 0.0),
                             valid.sum(-1))

@@ -17,6 +17,8 @@
 - Solver names and the device rule: ``cuda`` raises without CUDA.
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -134,9 +136,23 @@ def test_find_alloc_ref_matches_jax_kernel(jax_kernels, n, topo):
         assert np.array_equal(w.astype(g.numpy().dtype), g.numpy())
 
 
-@pytest.mark.parametrize("n,topo", [(64, "bursty"), (200, "grown")])
-def test_commit_scan_ref_matches_jax_kernel(jax_kernels, n, topo):
+def _add_free(avail, delta):
+    """``avail`` with ``delta`` added to every third key's free units
+    (where at least one is free when ``delta`` is negative)."""
+    avail = avail.copy()
+    keys = np.arange(0, len(avail), 3)
+    if delta < 0:
+        keys = keys[avail[keys] >= 1.0]
+    avail[keys] += delta
+    return avail
+
+
+def _scan_inputs(n, topo, delta=0.0):
+    """K5's host tables at ``_state(n, topo)`` (with ``_add_free(delta)``),
+    built as the JAX package's ``_scan_commit`` builds them: (the tables
+    by ``ops.commit_scan``'s argument names, N, R, C, wmax)."""
     jobs, ps, now, avail, gamma = _state(n, topo)
+    avail = _add_free(avail, delta)
     J, M, N = len(jobs), len(ps.keys), ps.n_node_rows
     R = len(ps.cluster.gpu_types)
     C = int(max(ps.cap_arr.max(), (gamma + avail).max(), 1.0))
@@ -147,27 +163,179 @@ def test_commit_scan_ref_matches_jax_kernel(jax_kernels, n, topo):
                      P_tab[None] / jt.x_key[:, :, None], np.inf)
     order = np.argsort(ratio.reshape(B, -1), axis=-1, kind="stable")
     s_m = (order // C).astype(np.int32)
-    s_u = (order % C).astype(np.int32)
-    s_rank = np.take_along_axis(jt.rank, s_m, axis=1).astype(np.int32)
-    s_price = P_tab.reshape(-1)[order]
-    s_node = ps.node_row[s_m].astype(np.int32)
-    wmax = tbs._wmax(jt.W)
+    tab = {"free": avail, "gamma": gamma.astype(np.int32), "P_tab": P_tab,
+           "node_row": ps.node_row.astype(np.int32), "W": jt.W,
+           "Kj": jt.Kj.astype(np.int32), "single": jt.single,
+           "rank": jt.rank.astype(np.int32), "u_tab": jt.u_tab, "s_m": s_m,
+           "s_u": (order % C).astype(np.int32),
+           "s_rank": np.take_along_axis(jt.rank, s_m,
+                                        axis=1).astype(np.int32),
+           "s_price": P_tab.reshape(-1)[order],
+           "s_node": ps.node_row[s_m].astype(np.int32)}
+    return tab, N, R, C, tbs._wmax(jt.W)
+
+
+def _jax_commit(tab, N, R, wmax):
+    """The JAX package's K5 (``_build_commit_kernel``) on ``tab``."""
     with jax.enable_x64():
         want = jbs._build_commit_kernel(N, R, COMM_COST_FRAC, wmax)(
             *map(jnp.asarray, (
-                avail, gamma.astype(np.int32), P_tab, ps.node_row, jt.W,
-                jt.W.astype(np.int32), jt.Kj.astype(np.int32), jt.single,
-                jt.rank.astype(np.int32), jt.u_tab, s_m, s_u, s_rank,
-                s_price, s_node)))
-        want = [np.asarray(w) for w in want]
-    got = ref.commit_scan_ref(
-        _t(avail), _t(gamma, np.int32), _t(P_tab), _t(ps.node_row, np.int32),
-        _t(jt.W), _t(jt.Kj, np.int32), _t(jt.single),
-        _t(jt.rank, np.int32), _t(jt.u_tab), _t(s_m), _t(s_u), _t(s_rank),
-        _t(s_price), _t(s_node), N, COMM_COST_FRAC, wmax)
+                tab["free"], tab["gamma"], tab["P_tab"], tab["node_row"],
+                tab["W"], tab["W"].astype(np.int32), tab["Kj"],
+                tab["single"], tab["rank"], tab["u_tab"], tab["s_m"],
+                tab["s_u"], tab["s_rank"], tab["s_price"], tab["s_node"])))
+        return [np.asarray(w) for w in want]
+
+
+def _ref_commit(tab, N, wmax, need=None):
+    return ref.commit_scan_ref(*(_t(tab[k]) for k in tbs.COMMIT_SCAN_ARGS),
+                               N, COMM_COST_FRAC, wmax, need=need)
+
+
+# the last two: a fractional carry.  +0.5 pushes a key's window past the
+# last unit (gamma + free = C + 0.5), where it is cut; -0.5 leaves
+# ceil(free) units inside it.
+FRAC_STATES = [pytest.param(64, "bursty", 0.0, id="64-bursty"),
+               pytest.param(200, "grown", 0.0, id="200-grown"),
+               pytest.param(64, "bursty", 0.5, id="64-bursty-free+0.5"),
+               pytest.param(200, "grown", -0.5, id="200-grown-free-0.5")]
+
+
+@pytest.mark.parametrize("n,topo,delta", FRAC_STATES)
+def test_commit_scan_ref_matches_jax_kernel(jax_kernels, n, topo, delta):
+    tab, N, R, _, wmax = _scan_inputs(n, topo, delta)
+    assert delta == 0.0 or not np.array_equal(tab["free"],
+                                              np.round(tab["free"]))
+    want = _jax_commit(tab, N, R, wmax)
+    got = _ref_commit(tab, N, wmax)
     assert want[2].any()                             # some winners
     for w, g in zip(want, got):
         assert np.array_equal(w.astype(g.numpy().dtype), g.numpy())
+
+
+def _window_units(free, gamma, C):
+    """Units u in [0, C) with gamma <= u < gamma + free, per key."""
+    hi = np.minimum(C, gamma + np.ceil(free))
+    return np.where(free > 0, np.maximum(hi - np.maximum(gamma, 0), 0),
+                    0).astype(np.int64)
+
+
+@pytest.mark.parametrize("n,topo,delta", FRAC_STATES)
+def test_commit_scan_ref_count_identity(n, topo, delta):
+    """K5's count before walking, on the plain version's outputs, with
+    the carry replayed from its counts: every prefix's eligible units in
+    the pool are the keys' window units; where they are fewer than W,
+    sp_nserv is the number of node rows that hold one, and the step
+    reads no pool entry for that prefix (``need``)."""
+    tab, N, R, C, wmax = _scan_inputs(n, topo, delta)
+    need = []
+    _, _, _, _, counts, _, _, sp_nserv = _ref_commit(tab, N, wmax, need)
+    counts, sp_nserv = counts.numpy(), sp_nserv.numpy()
+    free = tab["free"].copy()
+    gamma = tab["gamma"].astype(np.int64)
+    counted = walked = 0
+    for p in range(len(tab["W"])):
+        w, kj, rank = int(tab["W"][p]), int(tab["Kj"][p]), tab["rank"][p]
+        units = _window_units(free, gamma, C)
+        m, u = tab["s_m"][p], tab["s_u"][p]
+        inside = (u >= gamma[m]) & (u - gamma[m] < free[m])
+        reach = 0
+        for k in range(1, R + 1):
+            mine = rank < k
+            assert units[mine].sum() == (inside & (tab["s_rank"][p] < k)).sum()
+            if kj == 0:
+                continue
+            if units[mine].sum() < w:
+                counted += 1
+                rows = np.unique(tab["node_row"][mine & (units > 0)])
+                assert sp_nserv[p, k - 1] == rows.size
+            else:
+                walked += 1
+                reach = max(reach, 1 + np.nonzero(np.cumsum(
+                    inside & (tab["s_rank"][p] < k)) >= w)[0][0])
+        assert need[p][0] == (reach if w and kj else 0)
+        free = free - counts[p]
+        gamma = gamma + counts[p]
+    assert counted > 0 and walked > 0
+
+
+def _smoke():
+    """The repository's ``chip_smoke.py`` as a module (its table builders
+    need no card)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _agrees_with_jax(tab, pay_ulps=0):
+    """The plain version and the JAX package's K5 on ``tab``: bitwise, but
+    for the runner-up payoff, which may differ by ``pay_ulps`` where the
+    JAX kernel sums a spread slot's prices in XLA's order, not NumPy's
+    (the reference's own caveat, ``repro/core/batch_solver.py:50-59``)."""
+    N, R = tab["n_nodes"], tab["u_tab"].shape[1]
+    want = _jax_commit(tab, N, R, tab["wmax"])
+    got = [g.numpy() for g in _ref_commit(tab, N, tab["wmax"])]
+    assert want[2].any()                             # some winners
+    for i, (w, g) in enumerate(zip(want, got)):
+        w = w.astype(g.dtype)
+        if i == 6:  # win2_pay
+            assert np.array_equal(np.isfinite(w), np.isfinite(g))
+            ulps = np.abs(w.view(np.int64) - g.view(np.int64))
+            assert np.all(np.where(np.isfinite(w), ulps, 0) <= pay_ulps)
+        else:
+            assert np.array_equal(w, g)
+
+
+@pytest.mark.parametrize("delta", [0.5, -0.5])
+def test_smoke_frac_tables(jax_kernels, delta):
+    """``chip_smoke.frac_tables``: the fig5 K5 tables with ``delta`` on
+    every third key's free (only the free vector changes), on which the
+    plain version agrees with the JAX package's K5."""
+    smoke = _smoke()
+    base = smoke.sched_tables(64, "grown")[1]
+    tab = smoke.frac_tables(delta, n=64, topo="grown")
+    keys = np.arange(0, len(base["free"]), 3)
+    if delta < 0:
+        keys = keys[base["free"][keys] >= 1.0]
+    want_free = base["free"].copy()
+    want_free[keys] += delta
+    assert keys.size and np.array_equal(tab["free"], want_free)
+    for k in base:
+        if k not in ("free", "jt"):
+            assert np.array_equal(np.asarray(tab[k]), np.asarray(base[k]))
+    _agrees_with_jax(tab)
+
+
+@pytest.mark.parametrize("kind,n_nodes", [("random", 12), ("random", 30),
+                                          ("cut", 12)])
+def test_smoke_random_tables(jax_kernels, kind, n_nodes):
+    """``chip_smoke.random_tables`` (and its "cut" form) keeps
+    ``scan_tables``' invariants (each pool the whole (key, unit) table,
+    s_rank = rank[s_m], s_node = node_row[s_m], one key per (node row,
+    type)), and the plain version agrees with the JAX package's K5 on it,
+    jobs that ask for no unit included: every decision bitwise, the
+    runner-up payoff within 2 ulps (spread slots of up to 8 units, which
+    the JAX kernel sums in XLA's order)."""
+    tab = _smoke().extra_tables(kind, n_nodes)
+    assert (tab["W"] == 0).any()
+    if kind == "cut":
+        assert np.all(tab["free"] == 1.5)
+    M, C = len(tab["free"]), tab["C"]
+    flat = tab["s_m"].astype(np.int64) * C + tab["s_u"]
+    assert np.array_equal(np.sort(flat, axis=1),
+                          np.broadcast_to(np.arange(M * C), flat.shape))
+    assert np.array_equal(tab["s_rank"],
+                          np.take_along_axis(tab["rank"], tab["s_m"], 1))
+    assert np.array_equal(tab["s_node"], tab["node_row"][tab["s_m"]])
+    assert np.array_equal(tab["s_price"],
+                          tab["P_tab"].reshape(-1)[flat])
+    cells = tab["node_row"][None, :] * (tab["u_tab"].shape[1] + 1) \
+        + tab["rank"]
+    usable = tab["rank"] < tab["Kj"][:, None]
+    assert all(len(set(c[u])) == u.sum() for c, u in zip(cells, usable))
+    _agrees_with_jax(tab, pay_ulps=2)
 
 
 def test_pairwise_sum_is_numpys_order():
