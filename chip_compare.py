@@ -30,8 +30,9 @@ backwards, ``--rounds`` times:
   kernel leaves in L2 for the next one.
 
 For K3, ``F.rms_norm`` takes its cold and warm turns beside the builds (a
-yardstick only).  K5 has no forward: it is timed cold only.  Reports every time and each median; exits non-zero if a
-build fails a gate.  Needs a card.
+yardstick only).  K5 has no forward: it is timed cold only.  Reports every
+time and each median; exits non-zero if a build fails a gate.  Needs a
+card.
 """
 from __future__ import annotations
 

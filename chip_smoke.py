@@ -50,9 +50,7 @@ exits non-zero.
    and taken from, every third key's free: ``frac_tables``) and on two
    seeded tables with pools in random order (``random_tables``: walks that
    reach a partial last chunk or go 9 chunks deep; one with every window
-   cut at the last unit), and on a shape whose
-   count and block-walk arrays do not fit, where the launch walks a warp
-   per prefix (``lean_tables``); every K5 case
+   cut at the last unit); every K5 case
    runs twice and must be bitwise deterministic; its row gives the
    microseconds a step.  First the running NumPy is checked to sum float64
    in the order both replicate.
@@ -170,10 +168,9 @@ SCHED_MAIN = (2048, "grown")
 # pool orders over n_nodes = 80 (L = 1012, walks into a partial last
 # chunk) and 170 (L = 2176, walks of up to 9 chunks) node rows
 # (``random_tables``); the first of those with every window cut at the last
-# unit ("cut"); and a shape too large for the count's and the block walk's
-# shared memory (``lean_tables``, seed 0)
+# unit ("cut")
 EXTRA_K5 = (("frac", 0.5), ("frac", -0.5), ("random", 80), ("random", 170),
-            ("cut", 80), ("lean", 0))
+            ("cut", 80))
 # the decision-latency sweep of the schedule phase (both solvers)
 SWEEP_SIZES = (64, 256, 1024, 2048)
 SIM_JOBS = 256
@@ -954,35 +951,6 @@ def sched_case(n: int, topo: str):
     return rows
 
 
-def _random_keys(seed: int, n_nodes: int, R: int):
-    """(the generator, node row and type of each key) of ``random_tables``:
-    each node row holds 1-R of R types, a key per node and type."""
-    import numpy as np
-    rs = np.random.RandomState(seed)
-    has = rs.rand(n_nodes, R) < 0.7
-    has[np.arange(n_nodes), rs.randint(0, R, n_nodes)] = True
-    node_row, ktype = np.nonzero(has)
-    return rs, node_row, ktype
-
-
-def lean_tables(seed: int = 0, R: int = 4, wmax: int = 8) -> dict:
-    """``random_tables`` of 32 jobs at the fewest node rows from 1500 on
-    whose count and block-walk arrays no longer fit in a block's shared
-    memory beside the rest (``commit_scan_smem`` of the built kernel), so
-    that the launch walks a warp per prefix without counting."""
-    import ctypes
-    from repro_torch.kernels import build
-    size = build.load("commit_scan").commit_scan_smem
-    size.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-    size.restype = ctypes.c_longlong
-    full = ctypes.c_int()
-    for n in range(1500, 4000):
-        size(len(_random_keys(seed, n, R)[1]), n, R, wmax, ctypes.byref(full))
-        if not full.value:
-            return random_tables(seed, n, jobs=32, R=R, wmax=wmax)
-    raise RuntimeError("lean_tables: every shape tried fits the full layout")
-
-
 def extra_tables(kind: str, arg) -> dict:
     """The K5 tables of one of ``EXTRA_K5``; "cut": ``random_tables`` with
     0.5 added to every key's free, so that every window is cut at the last
@@ -990,8 +958,6 @@ def extra_tables(kind: str, arg) -> dict:
     (free 1.5 over one unit, or 0.5 over none once a unit is taken)."""
     if kind == "frac":
         return frac_tables(arg)
-    if kind == "lean":
-        return lean_tables(arg)
     tab = random_tables(0, arg)
     if kind == "cut":
         tab["free"] = tab["free"] + 0.5
@@ -1005,15 +971,18 @@ def random_tables(seed: int, n_nodes: int, jobs: int = 512, R: int = 4,
     node and type, C units, one free: gamma = C - 1), gangs of 1-8,
     1-R usable types in random preference order, a fifth of the jobs
     single-node, and a twentieth (drawn from seed + 1) asking for no unit:
-    their empty spread slot is a candidate, also once no unit is left.  A pool in price order ends in a job's unusable units, so
-    the fig5 walks end early (by entry 1020 of 1272 at n=2048 bursty);
-    here the W-th eligible unit lies anywhere, and as the free units run
-    out walks reach the pool's last, partial chunk and past the chunks the
-    kernel stages.  The tables keep ``scan_tables``' invariants (the pool
-    is the whole (key, unit) table; s_rank = rank[s_m], s_node =
-    node_row[s_m])."""
+    their empty spread slot is a candidate, also once no unit is left.  A
+    pool in price order ends in a job's unusable units, so the fig5 walks
+    end early (by entry 1020 of 1272 at n=2048 bursty); here the W-th
+    eligible unit lies anywhere, and as the free units run out walks reach
+    the pool's last, partial chunk and go several chunks deep.  The tables
+    keep ``scan_tables``' invariants (the pool is the whole (key, unit)
+    table; s_rank = rank[s_m], s_node = node_row[s_m])."""
     import numpy as np
-    rs, node_row, ktype = _random_keys(seed, n_nodes, R)
+    rs = np.random.RandomState(seed)
+    has = rs.rand(n_nodes, R) < 0.7
+    has[np.arange(n_nodes), rs.randint(0, R, n_nodes)] = True
+    node_row, ktype = np.nonzero(has)
     M = len(node_row)
     P_tab = np.cumsum(rs.uniform(0.5, 1.5, (M, C)), axis=1)
     Kj = rs.randint(1, R + 1, jobs).astype(np.int32)

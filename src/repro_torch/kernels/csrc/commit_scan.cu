@@ -57,9 +57,7 @@
 //    (its first feasible prefix) and one a prefix, with no division; the
 //    block's top two is a butterfly in the lanes; the next job's W, Kj,
 //    single, utilities and each thread's first rank are loaded a step
-//    ahead; the kernel is compiled for R = 1..4 (the fig5 clusters have 3
-//    GPU types) so its loops over the ranks unroll, with a form for any R
-//    beside them.
+//    ahead.
 // 4. A step with no candidate.  Where no prefix reaches W and the usable
 //    keys hold fewer than W units (their ceil(free) summed in the same
 //    pass), no node row is feasible either: after the first barrier the
@@ -81,12 +79,17 @@
 // fig5 shapes (below).
 //
 // Shared memory: the parent's arrays, with its (N, R) takes replaced by the
-// keys' (N, R) costs and without its (N) packed payoffs, plus the count's
-// (R doubles, 2 R (1 + ceil(N/32)) + 5 ints) and the block walk's (2R ints,
-// 16R bytes) where they fit; where they do not, the launch walks a warp per
-// prefix without counting, in less shared memory than the parent, so it
-// refuses only the shapes the parent refused (SMEM_EXCEEDED from M, N, R and
-// wmax).
+// keys' (N, R) costs and without its (N) packed payoffs and 24 bytes of its
+// reduction, plus the count's (R doubles, 2 R (1 + ceil(N/32)) + 5 ints) and
+// the block walk's (2R ints, 16R bytes):
+//   this layout - the parent's = 40 R + 8 R ceil(N/32) - 8 N - 4 bytes,
+// whatever M, L and wmax.  It is no larger for N >= 6, 12, 18, 24 at
+// R = 1, 2, 3, 4; below those N, a key per (node row, rank) cell (M <= N R)
+// keeps both far under the limit.  So for R <= 19 it refuses no shape the
+// parent took (SMEM_EXCEEDED only from M, N, R and wmax, nothing grows with
+// L; checked over every N < 20000, wmax <= 128, M <= N R); from R = 20 types
+// on, a shape that the parent's layout fits by less than that difference is
+// refused.
 //
 // Bound.  The function reads the state and tables once and, per step, the
 // job's rows and the prefix of its pool that its longest walk ends (data-
@@ -98,8 +101,8 @@
 //
 // Forms timed (chip_compare.py --kernels commit_scan: the fig5 n=2048 grown
 // and bursty tables, cold, in turns on one NVIDIA H100 80GB HBM3 at 700.00 W,
-// medians of 3, ms; each list is one call; a form without a mechanism sets
-// `count` or `block` to 0 in the C entry):
+// medians of 3, ms; each list is one call; a form without a mechanism is a
+// build with it switched off):
 //   parent (PR 15)                                  42.21 / 50.54
 //   no mechanism (a warp a prefix)                  39.09 / 50.48
 //   count                                            9.16 /  7.83
@@ -108,8 +111,9 @@
 //   count + staging of the rows only                 8.52 /  7.77
 //   count + block walk                               7.94 /  7.39
 //   count + staging + block walk                     8.34 /  7.99
-// then compile-time R and the rank and utilities a step ahead: 7.70 / 7.88
-// before, 7.07 / 7.52 after; that form beside its variants:
+// then R known to the compiler (a build for each R = 1..4 beside one for any
+// R) and the rank and utilities a step ahead: 7.70 / 7.88 before, 7.07 / 7.52
+// after; that form beside its variants:
 //   parent (PR 15)                                  42.38 / 50.50
 //   no mechanism                                    39.38 / 48.37
 //   count                                            8.55 /  8.08
@@ -119,8 +123,11 @@
 // then steps without a candidate ending after one barrier: 7.07 / 7.52
 // before, 5.54 / 5.23 after; pool entries loaded ahead of the walk (chunk 0
 // a step ahead, chunk c + 1 while c is taken), dropped: 5.53 / 5.21 before,
-// 5.41 / 5.62 after; the sweep once the carry is empty (this kernel): 5.50
-// / 5.19 before, 5.07 / 2.27 after.  The first form of this PR (every slot
+// 5.41 / 5.62 after; the sweep once the carry is empty: 5.50 / 5.19 before,
+// 5.07 / 2.27 after.  Last, without the warp-per-prefix fallback, the build
+// for R = 3 against the one for any R (medians of 5): 4.961 / 2.281 against
+// 5.006 / 2.296, 0.9% / 0.6%, under the 5% rule: one form for any R is
+// built (this kernel).  The first form of this PR (every slot
 // and prefix a candidate with a division each, 4- and 8-byte staging copies,
 // seven barriers) read 13.91 / 11.42 with all three mechanisms and 11.70 /
 // 10.20 without staging.
@@ -157,8 +164,6 @@ struct Args {
   double* win2_pay;        // (B)
   int* sp_nserv;           // (B, R)
   int B, M, N, R, C, L, wmax;
-  int count;               // 1: count each prefix's eligible units first
-  int block;               // 1: walk the pool with the whole block
   double comm_frac;
 };
 
@@ -166,23 +171,23 @@ struct Args {
 struct Smem {
   double *free_s, *cell, *vcell, *sp_pay, *ch_price, *red_val;
   int *gamma_s, *tkey, *kf, *jl, *nch, *ch_key, *ch_rank, *ch_node, *red_idx;
-  double* u_s;      // count: this job's utilities
-  // count, two of each, a step's by the parity of the steps counted so far:
+  double* u_s;      // this job's utilities
+  // two of each, a step's by the parity of the steps counted so far:
   int* rcnt;        // (2, R) eligible units by rank
   int* ucap;        // (2) units free in the usable keys, ceil(free) each
   int* anyfree;     // (2) nonzero: some key has free > 0
   int* stop;        // the first step a sweep of empty steps may not write
   unsigned* nbits;  // (2, R, ceil(N/32)) node rows with eligible units, by rank
-  int* fnd;         // block: (2, R) eligible entries before a chunk, by its parity
-  uint8_t* wcnt;    // block: (2, R, kWarps) each warp's eligible entries of a chunk
+  int* fnd;         // (2, R) eligible entries before a chunk, by its parity
+  uint8_t* wcnt;    // (2, R, kWarps) each warp's eligible entries of a chunk
   uint8_t *feas, *sp_ok;
 };
 
 __host__ __device__ inline int node_words(int N) { return (N + 31) / 32; }
 
 // Carves the shared memory at `base` (nullptr: just sizes it); returns bytes.
-__host__ __device__ size_t smem_layout(int M, int N, int R, int wmax, int count, int block,
-                                       unsigned char* base, Smem* s) {
+__host__ __device__ size_t smem_layout(int M, int N, int R, int wmax, unsigned char* base,
+                                       Smem* s) {
   size_t off = 0;
   auto dbl = [&](size_t n) {
     double* p = reinterpret_cast<double*>(base + off);
@@ -200,7 +205,7 @@ __host__ __device__ size_t smem_layout(int M, int N, int R, int wmax, int count,
   s->sp_pay = dbl(R);
   s->ch_price = dbl(static_cast<size_t>(R) * wmax);
   s->red_val = dbl(2 * kWarps);
-  s->u_s = dbl(count ? R : 0);
+  s->u_s = dbl(R);
   s->gamma_s = in(M);
   s->tkey = in(M);
   s->kf = in(N);
@@ -210,14 +215,14 @@ __host__ __device__ size_t smem_layout(int M, int N, int R, int wmax, int count,
   s->ch_rank = in(static_cast<size_t>(R) * wmax);
   s->ch_node = in(static_cast<size_t>(R) * wmax);
   s->red_idx = in(2 * kWarps);
-  s->rcnt = in(count ? 2 * R : 0);
-  s->ucap = in(count ? 2 : 0);
-  s->anyfree = in(count ? 2 : 0);
-  s->stop = in(count ? 1 : 0);
-  s->nbits = reinterpret_cast<unsigned*>(in(count ? 2 * static_cast<size_t>(R) * node_words(N) : 0));
-  s->fnd = in(block ? 2 * R : 0);
+  s->rcnt = in(2 * R);
+  s->ucap = in(2);
+  s->anyfree = in(2);
+  s->stop = in(1);
+  s->nbits = reinterpret_cast<unsigned*>(in(2 * static_cast<size_t>(R) * node_words(N)));
+  s->fnd = in(2 * R);
   s->wcnt = base + off;
-  off += block ? 2 * kWarps * R : 0;
+  off += 2 * kWarps * R;
   s->feas = base + off;
   off += N;
   s->sp_ok = base + off;
@@ -443,14 +448,11 @@ __device__ __forceinline__ void finish_counted(const Args& a, const Smem& s, int
   a.sp_nserv[static_cast<size_t>(p) * R + (k - 1)] = nserv;
 }
 
-// RC > 0: R = RC, known to the compiler, so every loop over the ranks
-// unrolls; 0: R from the arguments.
-template <int RC>
 __global__ void __launch_bounds__(kThreads, 1) commit_scan_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int M = a.M, N = a.N, R = RC > 0 ? RC : a.R, C = a.C, L = a.L, NW = node_words(N);
+  const int M = a.M, N = a.N, R = a.R, C = a.C, L = a.L, NW = node_words(N);
   Smem s;
-  smem_layout(M, N, R, a.wmax, a.count, a.block, smem, &s);
+  smem_layout(M, N, R, a.wmax, smem, &s);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const double NEG_INF = -CUDART_INF;
 
@@ -462,22 +464,20 @@ __global__ void __launch_bounds__(kThreads, 1) commit_scan_kernel(const Args a) 
     s.cell[i] = 0.0;
     s.vcell[i] = 0.0;
   }
-  if (a.count) {
-    for (int i = tid; i < 2 * R * NW; i += kThreads) s.nbits[i] = 0u;
-    for (int r = tid; r < 2 * R; r += kThreads) s.rcnt[r] = 0;
-    if (tid < 2) {
-      s.ucap[tid] = 0;
-      s.anyfree[tid] = 0;
-    }
+  for (int i = tid; i < 2 * R * NW; i += kThreads) s.nbits[i] = 0u;
+  for (int r = tid; r < 2 * R; r += kThreads) s.rcnt[r] = 0;
+  if (tid < 2) {
+    s.ucap[tid] = 0;
+    s.anyfree[tid] = 0;
   }
   int par = 0;  // parity of the steps counted so far
-  // the next job's scalars, the rank of this thread's first key and (where
-  // the count's arrays are) a utility, loaded a step ahead
+  // the next job's scalars, the rank of this thread's first key and a
+  // utility, loaded a step ahead
   double Wn = a.W[0];
   int kjn = a.Kj[0];
   bool singlen = a.single[0] != 0;
   int rkn = tid < M ? a.rank[tid] : R;
-  double un = a.count && tid < R ? a.u_tab[tid] : 0.0;
+  double un = tid < R ? a.u_tab[tid] : 0.0;
   __syncthreads();
 
   for (int p = 0; p < a.B; ++p) {
@@ -487,17 +487,16 @@ __global__ void __launch_bounds__(kThreads, 1) commit_scan_kernel(const Args a) 
     const bool single = singlen;
     const int rk_own = rkn;
     const int* rank = a.rank + static_cast<size_t>(p) * M;
-    const double* u = a.u_tab + static_cast<size_t>(p) * R;
-    if (a.count) {  // read after the first barrier; last read before the last one
-      for (int k = tid; k < R; k += kThreads) s.u_s[k] = k == tid ? un : u[k];
-      u = s.u_s;
-    }
+    // read after the first barrier; last read before the last one
+    const double* u = s.u_s;
+    for (int k = tid; k < R; k += kThreads)
+      s.u_s[k] = k == tid ? un : a.u_tab[static_cast<size_t>(p) * R + k];
     if (p + 1 < a.B) {
       Wn = a.W[p + 1];
       kjn = a.Kj[p + 1];
       singlen = a.single[p + 1] != 0;
       if (tid < M) rkn = a.rank[static_cast<size_t>(p + 1) * M + tid];
-      if (a.count && tid < R) un = a.u_tab[static_cast<size_t>(p + 1) * R + tid];
+      if (tid < R) un = a.u_tab[static_cast<size_t>(p + 1) * R + tid];
     }
     const size_t row = static_cast<size_t>(p) * L;
     int* counts = a.counts + static_cast<size_t>(p) * M;
@@ -518,13 +517,11 @@ __global__ void __launch_bounds__(kThreads, 1) commit_scan_kernel(const Args a) 
     // barrier, are cleared for the next step)
     int* rcnt = s.rcnt + par * R;
     unsigned* nbits = s.nbits + par * R * NW;
-    if (a.count) {
-      for (int i = tid; i < R * NW; i += kThreads) s.nbits[(par ^ 1) * R * NW + i] = 0u;
-      for (int r = tid; r < R; r += kThreads) s.rcnt[(par ^ 1) * R + r] = 0;
-      if (tid == 0) {
-        s.ucap[par ^ 1] = 0;
-        s.anyfree[par ^ 1] = 0;
-      }
+    for (int i = tid; i < R * NW; i += kThreads) s.nbits[(par ^ 1) * R * NW + i] = 0u;
+    for (int r = tid; r < R; r += kThreads) s.rcnt[(par ^ 1) * R + r] = 0;
+    if (tid == 0) {
+      s.ucap[par ^ 1] = 0;
+      s.anyfree[par ^ 1] = 0;
     }
     for (int m0 = 0; m0 < M; m0 += kThreads) {  // whole warps, for the sum
       const int m = m0 + tid;
@@ -534,7 +531,7 @@ __global__ void __launch_bounds__(kThreads, 1) commit_scan_kernel(const Args a) 
         const int h = __ldg(a.node_row + m);
         const double f = s.free_s[m];
         if (r < kj) s.cell[h * R + r] = f;
-        if (a.count && r < R) {
+        if (r < R) {
           const int n = window_units(f, s.gamma_s[m], C);
           if (n > 0) {
             atomicAdd(rcnt + r, n);
@@ -542,71 +539,65 @@ __global__ void __launch_bounds__(kThreads, 1) commit_scan_kernel(const Args a) 
           }
           if (r < kj && f > 0.0) cap = static_cast<int>(ceil(f));
         }
-        if (a.count && f > 0.0) s.anyfree[par] = 1;
+        if (f > 0.0) s.anyfree[par] = 1;
       }
-      if (a.count) {
-        cap = __reduce_add_sync(0xffffffffu, cap);
-        if (lane == 0 && cap > 0) atomicAdd(s.ucap + par, cap);
-      }
+      cap = __reduce_add_sync(0xffffffffu, cap);
+      if (lane == 0 && cap > 0) atomicAdd(s.ucap + par, cap);
     }
     __syncthreads();
 
     // the first prefix whose eligible units reach W; the ones before it
     // are not walked (R + 1: none is)
-    int k0 = 1;
-    if (a.count) {
-      int n = 0;
-      k0 = R + 1;
-      for (int r = 0; r < R; ++r) {
-        n += rcnt[r];
-        if (n >= Wi) { k0 = r + 1; break; }
+    int n = 0, k0 = R + 1;
+    for (int r = 0; r < R; ++r) {
+      n += rcnt[r];
+      if (n >= Wi) { k0 = r + 1; break; }
+    }
+    // No prefix walks and the usable keys hold fewer than W units, so no
+    // node row is feasible either: no candidate, slot 0 wins with -inf,
+    // nothing is committed.
+    if (k0 > R && static_cast<double>(s.ucap[par]) < W) {
+      for (int k = warp + 1; k <= R; k += kWarps) finish_counted(a, s, R, par, p, k);
+      for (int i = tid; i < N * R; i += kThreads) s.cell[i] = 0.0;
+      for (int m = tid; m < M; m += kThreads) counts[m] = 0;
+      if (tid == 0) {
+        a.won[p] = 0;
+        a.win[p] = 0;
+        a.win2[p] = 0;
+        a.win2_pay[p] = NEG_INF;
+        s.stop[0] = a.B;
       }
-      // No prefix walks and the usable keys hold fewer than W units, so no
-      // node row is feasible either: no candidate, slot 0 wins with -inf,
-      // nothing is committed.
-      if (k0 > R && static_cast<double>(s.ucap[par]) < W) {
-        for (int k = warp + 1; k <= R; k += kWarps) finish_counted(a, s, R, par, p, k);
-        for (int i = tid; i < N * R; i += kThreads) s.cell[i] = 0.0;
-        for (int m = tid; m < M; m += kThreads) counts[m] = 0;
-        if (tid == 0) {
-          a.won[p] = 0;
-          a.win[p] = 0;
-          a.win2[p] = 0;
-          a.win2_pay[p] = NEG_INF;
-          s.stop[0] = a.B;
-        }
-        const bool empty = !s.anyfree[par];
-        par ^= 1;
-        __syncthreads();
-        if (!empty) continue;
-        // No key has a free unit, so no later step can take one: each has
-        // the outputs of a step without a candidate (all servers 0) up to
-        // the first whose gang is below one unit (an empty spread slot
-        // could then win).  They are written at once.
-        for (int q = p + 1 + tid; q < a.B; q += kThreads)
-          if (a.Kj[q] > 0 && !(a.W[q] >= 1.0)) atomicMin(s.stop, q);
-        __syncthreads();
-        const int stop = s.stop[0];
-        for (size_t i = tid; i < static_cast<size_t>(stop - p - 1) * M; i += kThreads)
-          a.counts[static_cast<size_t>(p + 1) * M + i] = 0;
-        for (size_t i = tid; i < static_cast<size_t>(stop - p - 1) * R; i += kThreads)
-          a.sp_nserv[static_cast<size_t>(p + 1) * R + i] = 0;
-        for (int q = p + 1 + tid; q < stop; q += kThreads) {
-          a.won[q] = 0;
-          a.win[q] = 0;
-          a.win2[q] = 0;
-          a.win2_pay[q] = NEG_INF;
-        }
-        p = stop - 1;
-        if (stop < a.B) {
-          Wn = a.W[stop];
-          kjn = a.Kj[stop];
-          singlen = a.single[stop] != 0;
-          if (tid < M) rkn = a.rank[static_cast<size_t>(stop) * M + tid];
-          if (tid < R) un = a.u_tab[static_cast<size_t>(stop) * R + tid];
-        }
-        continue;
+      const bool empty = !s.anyfree[par];
+      par ^= 1;
+      __syncthreads();
+      if (!empty) continue;
+      // No key has a free unit, so no later step can take one: each has
+      // the outputs of a step without a candidate (all servers 0) up to
+      // the first whose gang is below one unit (an empty spread slot
+      // could then win).  They are written at once.
+      for (int q = p + 1 + tid; q < a.B; q += kThreads)
+        if (a.Kj[q] > 0 && !(a.W[q] >= 1.0)) atomicMin(s.stop, q);
+      __syncthreads();
+      const int stop = s.stop[0];
+      for (size_t i = tid; i < static_cast<size_t>(stop - p - 1) * M; i += kThreads)
+        a.counts[static_cast<size_t>(p + 1) * M + i] = 0;
+      for (size_t i = tid; i < static_cast<size_t>(stop - p - 1) * R; i += kThreads)
+        a.sp_nserv[static_cast<size_t>(p + 1) * R + i] = 0;
+      for (int q = p + 1 + tid; q < stop; q += kThreads) {
+        a.won[q] = 0;
+        a.win[q] = 0;
+        a.win2[q] = 0;
+        a.win2_pay[q] = NEG_INF;
       }
+      p = stop - 1;
+      if (stop < a.B) {
+        Wn = a.W[stop];
+        kjn = a.Kj[stop];
+        singlen = a.single[stop] != 0;
+        if (tid < M) rkn = a.rank[static_cast<size_t>(stop) * M + tid];
+        if (tid < R) un = a.u_tab[static_cast<size_t>(stop) * R + tid];
+      }
+      continue;
     }
 
     // ---- node rows: consolidated slots; keys: takes and packed costs -----
@@ -633,42 +624,11 @@ __global__ void __launch_bounds__(kThreads, 1) commit_scan_kernel(const Args a) 
     // prefixes below k0 from their counts; k0 and up walk the pool
     for (int k = warp + 1; k < k0; k += kWarps) finish_counted(a, s, R, par, p, k);
     Entry e;
-    if (a.block && k0 <= R) walk_mark(a, s, R, row, 0, k0, e);
-    if (!a.block) {  // a warp per prefix, 32 entries at a time
-      for (int k = warp + 1; k <= R; k += kWarps) {
-        if (k < k0) continue;
-        double* ch_price = s.ch_price + (k - 1) * a.wmax;
-        int* ch_key = s.ch_key + (k - 1) * a.wmax;
-        int* ch_rank = s.ch_rank + (k - 1) * a.wmax;
-        int* ch_node = s.ch_node + (k - 1) * a.wmax;
-        int found = 0;
-        for (int p0 = 0; p0 < L && found < Wi; p0 += 32) {
-          const int q = p0 + lane;
-          bool el = false;
-          if (q < L) {
-            const int m = a.s_m[row + q];
-            const int lo = s.gamma_s[m];
-            const int uu = a.s_u[row + q];
-            el = uu >= lo && static_cast<double>(uu - lo) < s.free_s[m] && a.s_rank[row + q] < k;
-          }
-          const unsigned mask = __ballot_sync(0xffffffffu, el);
-          const int before = found + __popc(mask & ((1u << lane) - 1u));
-          if (el && before < Wi) {
-            ch_price[before] = a.s_price[row + q];
-            ch_key[before] = a.s_m[row + q];
-            ch_rank[before] = a.s_rank[row + q];
-            ch_node[before] = a.s_node[row + q];
-          }
-          found += __popc(mask);
-        }
-        __syncwarp();
-        finish_walked(a, s, R, u, p, k, found, Wi, kj, single);
-      }
-    }
+    if (k0 <= R) walk_mark(a, s, R, row, 0, k0, e);
     __syncthreads();
 
     // ---- the block walk: chosen units, then the walked prefixes ---------
-    if (a.block && k0 <= R) {
+    if (k0 <= R) {
       int c = 0;
       while (walk_take(a, s, R, row, c, k0, Wi, e)) {
         walk_mark(a, s, R, row, ++c, k0, e);
@@ -749,19 +709,10 @@ extern "C" int commit_scan_fwd(const void* free0, const void* gamma0, const void
                                int wmax, double comm_frac, void* stream) {
   if (B <= 0 || M <= 0 || N <= 0 || R <= 0 || C <= 0 || L < 0 || wmax <= 0 || wmax > 128)
     return int(cudaErrorInvalidValue);
-  using Kernel = void (*)(Args);
-  const Kernel kernels[] = {commit_scan_kernel<0>, commit_scan_kernel<1>, commit_scan_kernel<2>,
-                            commit_scan_kernel<3>, commit_scan_kernel<4>};
-  const Kernel kernel = kernels[R <= 4 ? R : 0];
   Smem layout;
-  // the count's and the block walk's arrays, where they fit; else every
-  // prefix is walked by a warp, in less shared memory than PR 15's form took
-  int count = 1, block = 1;
-  if (smem_layout(M, N, R, wmax, count, block, nullptr, &layout) > sched::kSmemMax)
-    count = block = 0;
-  const size_t smem = smem_layout(M, N, R, wmax, count, block, nullptr, &layout);
+  const size_t smem = smem_layout(M, N, R, wmax, nullptr, &layout);
   if (smem > sched::kSmemMax) return sched::kSmemExceeded;
-  cudaError_t err = cudaFuncSetAttribute(kernel,
+  cudaError_t err = cudaFuncSetAttribute(commit_scan_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return int(err);
@@ -775,17 +726,7 @@ extern "C" int commit_scan_fwd(const void* free0, const void* gamma0, const void
                static_cast<double*>(free), static_cast<int*>(gamma), static_cast<uint8_t*>(won),
                static_cast<int*>(win), static_cast<int*>(counts), static_cast<int*>(win2),
                static_cast<double*>(win2_pay), static_cast<int*>(sp_nserv), B, M, N, R, C, L,
-               wmax, count, block, comm_frac};
-  kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+               wmax, comm_frac};
+  commit_scan_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
-}
-
-// Shared memory (bytes) of one launch at these shapes, and whether the
-// launch counts first and walks with the whole block (*full = 1) or walks
-// a warp per prefix (*full = 0): for tests that choose shapes.
-extern "C" long long commit_scan_smem(int M, int N, int R, int wmax, int* full) {
-  Smem layout;
-  const size_t all = smem_layout(M, N, R, wmax, 1, 1, nullptr, &layout);
-  *full = all <= sched::kSmemMax;
-  return static_cast<long long>(*full ? all : smem_layout(M, N, R, wmax, 0, 0, nullptr, &layout));
 }
