@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Side-by-side timing of K2, K3 or K5 built from several checkouts, on one card.
+"""Side-by-side timing of K2-K5 built from several checkouts, on one
+card.
 
     python3 chip_compare.py [--tree NAME=DIR ...] [--kernels rmsnorm,rwkv6_scan]
                             [--rounds N] [--out FILE.json]
     python3 chip_compare.py --tree base=DIR --kernels commit_scan
+    python3 chip_compare.py --tree base=DIR --kernels find_alloc
 
 Builds each named kernel (``src/repro_torch/kernels/csrc/<k>.cu``) from
 this checkout ("this") and from each ``--tree`` (another checkout: the
@@ -12,13 +14,18 @@ changed) through ``chip_mutants.build``, one ``nvcc`` each, all at once.
 Each build is checked with the smoke's gates on the main-path shapes of
 ``chip_smoke.py`` (K3: 4096 x 2048 and 4096 x 4096 bf16; K2: B=4 H=64
 S=1024 D=64, bf16 r/k/v in model layout, f32 w; K5: the fig5 n=2048 grown
-and bursty tables, ``chip_smoke.commit_scan_check``: bitwise, twice), then
+and bursty tables, ``chip_smoke.commit_scan_check``: bitwise, twice; K4:
+the fig5 n=2048 grown and bursty tables, the n=256 "busy" and n=8192
+"queue" ones of ``chip_smoke.k4_tables``, ``chip_smoke.find_alloc_check``:
+bitwise, twice; and every launch of the smoke's 256-job ``simulate``,
+recorded with its inputs, each bitwise against its plain version), then
 timed through ``chip_mutants.swapped``, the builds in turn, forwards then
 backwards, ``--rounds`` times:
 
 - "cold": on the card alone (``chip_smoke.device_ms``), K3's x and K5's
   tables cycled through copies past L2 (``chip_smoke.cold_copies``), as
-  the smoke's ``ms``;
+  the smoke's ``ms``; K4's tables and its 11 outputs too (each launch
+  reads and writes its own copies);
 - "warm" (K3): back to back on one x, once on each of those copies: how
   much of x the L2 keeps between calls depends on where x lies, so one
   allocation is not a reading;
@@ -30,9 +37,14 @@ backwards, ``--rounds`` times:
   kernel leaves in L2 for the next one.
 
 For K3, ``F.rms_norm`` takes its cold and warm turns beside the builds (a
-yardstick only).  K5 has no forward: it is timed cold only.  Reports every
-time and each median; exits non-zero if a build fails a gate.  Needs a
-card.
+yardstick only).  K4 and K5 have no forward.  K4 has two more modes:
+"outputs to host", the host-clock time of copying one launch's 11
+outputs to host NumPy arrays as ``batch_solver.find_alloc_batch`` does;
+and, on the "simulate" case, "launches", the total device time of that
+run's launches back to back, each on its own recorded tables.  Every
+build's ``ptxas`` lines (registers, spills) are printed first.  Reports
+every time and each median; exits non-zero if a build fails a gate.
+Needs a card.
 """
 from __future__ import annotations
 
@@ -53,7 +65,10 @@ CSRC = Path("src/repro_torch/kernels/csrc")
 CASES = {"rmsnorm": [(4096, 2048, "bfloat16", "bfloat16", "main", 50),
                      (4096, 4096, "bfloat16", "bfloat16", "rwkv", 50)],
          "rwkv6_scan": [chip_smoke.RWKV_MAIN + ("bfloat16", "main", 20)],
-         "commit_scan": [(2048, "grown", 10), (2048, "bursty", 10)]}
+         "commit_scan": [(2048, "grown", 10), (2048, "bursty", 10)],
+         "find_alloc": [(2048, "grown", 20), (2048, "bursty", 20),
+                        (256, "busy", 20), (8192, "queue", 10),
+                        (chip_smoke.SIM_JOBS, "simulate", 0)]}
 # kernel -> (a part of its CUDA kernels' names, [(model, layers)]): the
 # forwards it is timed in
 FORWARDS = {"rmsnorm": ("rmsnorm", [("llama3.2-1b", 4), ("rwkv6-7b", 2)]),
@@ -115,6 +130,90 @@ def _commit_scan_case(case):
                                                    iters)]}, {})
 
 
+def _find_alloc_case(case):
+    """K4's check and timers on the tables of ``case`` (fig5, or
+    ``chip_smoke.k4_tables``): "cold", every launch on its own copy of the
+    inputs and of the outputs, copies cycled past L2; "outputs to host",
+    the host-clock time of copying one launch's outputs to host NumPy
+    arrays.  The "simulate" case is ``_find_alloc_path``."""
+    import time
+    import torch
+    from repro_torch.core.dp import COMM_COST_FRAC
+    from repro_torch.kernels import find_alloc as fk
+    n, kind, iters = case
+    if kind == "simulate":
+        return _find_alloc_path(n)
+    tab = (chip_smoke.k4_tables(kind, n) if kind in dict(chip_smoke.EXTRA_K4)
+           else chip_smoke.sched_tables(n, kind)[0])
+    _, args, out = chip_smoke.find_alloc_check(tab)
+    kw = (tab["n_nodes"], COMM_COST_FRAC, tab["wmax"])
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *out))
+    ins = list(zip(*(chip_smoke.cold_copies(t, nbytes) for t in args)))
+    outs = list(zip(*(chip_smoke.cold_copies(t, nbytes) for t in out)))
+    calls = [lambda c=c, o=o: fk.launch(c, o, *kw) for c, o in zip(ins, outs)]
+
+    def to_host():
+        fk.launch(args, out, *kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        [t.cpu().numpy() for t in out]
+        return [(time.perf_counter() - t0) * 1e3]
+    return (lambda: chip_smoke.find_alloc_check(tab)[0],
+            {"cold": lambda: [chip_smoke.device_ms(chip_smoke.cycled(calls),
+                                                   iters)],
+             "outputs to host": to_host}, {})
+
+
+def _find_alloc_path(n: int):
+    """K4's launches in the smoke's ``simulate`` of the ``n``-job fig5
+    trace (``chip_smoke.phase_simulate``, cuda solver), each recorded
+    with its inputs.  The check runs each recorded launch once against
+    its plain version, bitwise; the timer, "launches", runs all of them
+    back to back on the card (``device_ms``), each on its own tables, and
+    returns their total device time in ms."""
+    from collections import Counter
+    from unittest import mock
+    import torch
+    from repro_torch.core.hadar import HadarScheduler
+    from repro_torch.core.simulator import simulate
+    from repro_torch.core.types import clone_jobs
+    from repro_torch.kernels import find_alloc as fk
+    from repro_torch.kernels import ref
+    real, seen = fk.launch, []
+
+    def record(ins, out, *kw):
+        seen.append(([t.clone() for t in ins], kw))
+        real(ins, out, *kw)
+    jobs, cluster, _ = chip_smoke.fig5_round(n, "grown")
+    with mock.patch.object(fk, "launch", record):
+        simulate(HadarScheduler(solver="cuda"), clone_jobs(jobs), cluster)
+    plain = [ref.find_alloc_ref(*ins, *kw) for ins, kw in seen]
+    outs = [fk.find_alloc(*ins, *kw) for ins, kw in seen]  # the layout
+    calls = [lambda ins=ins, o=o, kw=kw: fk.launch(ins, o, *kw)
+             for (ins, kw), o in zip(seen, outs)]
+    sizes = dict(sorted(Counter(ins[6].shape[0] for ins, _ in seen).items()))
+
+    def check():
+        for o in outs:  # a field the build leaves unwritten then differs
+            for t in o:
+                t.view(torch.uint8).fill_(0xA5)
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+        bad = sum(not chip_smoke._same_bits(o, p)
+                  for o, p in zip(outs, plain))
+        return {"launches": len(calls), "jobs a launch": sizes,
+                "mismatched launches": bad, "ok": bad == 0}
+    total = len(calls)
+    return check, {"launches": lambda: [chip_smoke.device_ms(
+        chip_smoke.cycled(calls), total) * total]}, {}
+
+
+def _ptxas(log: str) -> list:
+    return [line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line]
+
+
 def _case(kernel: str, case, gen):
     """(check(): one call's errors by the smoke's gates, {mode: timer},
     {mode: library timer}); a timer returns a list of ms."""
@@ -126,6 +225,8 @@ def _case(kernel: str, case, gen):
     iters = case[-1]
     if kernel == "commit_scan":
         return _commit_scan_case(case)
+    if kernel == "find_alloc":
+        return _find_alloc_case(case)
     if kernel == "rwkv6_scan":
         args = chip_smoke.rwkv_inputs(case, gen)
         want, want_s = ref.rwkv6_scan_ref(*args)
@@ -197,6 +298,11 @@ def main(argv=None) -> int:
              for k in kernels for n, t in trees.items()}, Path(tmp))
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
+        report["ptxas"] = {
+            name: _ptxas((Path(tmp) / f"{name}.log").read_text())
+            for name in libs}
+        for name, lines in report["ptxas"].items():
+            print(f"[compare] ptxas {name}: {lines}", flush=True)
         for kernel in kernels:
             rows = {}
             for case in CASES[kernel]:

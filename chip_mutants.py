@@ -19,9 +19,9 @@ cases through each build with the smoke's own checks:
 - the scheduler kernels (K4 ``find_alloc``, K5 ``commit_scan``): faults
   anywhere in the source, run on the fig5 tables of every size and
   topology of the kernel phase through ``chip_smoke.find_alloc_check`` and
-  ``commit_scan_check`` (bitwise; one ulp on a spread payoff; K5 twice,
-  bitwise deterministic, and also on the smoke's further K5 cases,
-  ``chip_smoke.EXTRA_K5``).
+  ``commit_scan_check`` (bitwise, twice, bitwise deterministic; K5's
+  runner-up payoff within one ulp), and also on the smoke's further cases
+  of each (``chip_smoke.EXTRA_K4``, ``chip_smoke.EXTRA_K5``).
 
 The unchanged sources run first as the controls.  A fault is caught when
 at least one case exceeds its limit.  Exits non-zero if a control fails or
@@ -136,9 +136,48 @@ RMS_MUTANTS = {
 }
 FIND_ALLOC_MUTANTS = {
     "prefix_one_short": (
-        "const bool e = p < L && s_valid[p] && s_rank[p] < k;",
-        "const bool e = p < L && s_valid[p] && s_rank[p] < k - 1;",
+        "const bool e = c.valid && c.rank < k;",
+        "const bool e = c.valid && c.rank < k - 1;",
         "each spread prefix k takes only the types of prefix k - 1"),
+    "take_row_shift": (
+        "t[j] = i0 + 32 * j < N * R ? tile[i0 + 32 * j] : 0.0;",
+        "t[j] = i0 + 32 * j < N * R ? tile[(i0 + 32 * j + R) % (N * R)] "
+        ": 0.0;",
+        "the staged take span is written one node row off"),
+    "batch_last_slot": (
+        "cell[j] = m < M ? cnt[m] : -1;",
+        "cell[j] = m < M && j < kBatch - 1 ? cnt[m] : -1;",
+        "the last key of each lane's batch keeps its take as its cost"),
+    "stale_cells": (
+        "for (int i = lane; i < N * R; i += 32) tile[i] = 0.0;",
+        "for (int i = lane; i < N * R && b < 0; i += 32) tile[i] = 0.0;",
+        "a block never zeroes its tile: a cell with no key keeps what was "
+        "left in that shared memory"),
+    "servers_bit_alias": (
+        "atomicOr(&served[h >> 5], 1u << (h & 31));",
+        "atomicOr(&served[h >> 5], 1u << (h & 15));",
+        "node rows h and h + 16 of one word count as one server"),
+    "count_once": (
+        "atomicAdd(&cnt[key], 1);", "atomicMax(&cnt[key], 1);",
+        "a key chosen for several units counts one"),
+    "partial_chunk_dropped": (
+        "if (p < a.L) {", "if (p < a.L - a.L % 32) {",
+        "a walk never reads the pool's partial last chunk"),
+    "single_ignored": (
+        "a.sp_ok[o] = found >= Wi && !a.single[b] && k <= kj;",
+        "a.sp_ok[o] = found >= Wi && k <= kj;",
+        "a single-node job gets spread slots"),
+    "beyond_kj": (
+        "a.sp_ok[o] = found >= Wi && !a.single[b] && k <= kj;",
+        "a.sp_ok[o] = found >= Wi && !a.single[b];",
+        "prefixes past the job's usable types are offered"),
+    "take_rounded_up": (
+        "static_cast<int>(tile[cell[j]])",
+        "static_cast<int>(ceil(tile[cell[j]]))",
+        "a fractional take is priced at its next whole unit"),
+    "payoff_fastest": (
+        "__dsub_rn(u[jlast[h]], cost)", "__dsub_rn(u[0], cost)",
+        "a packed payoff takes the utility of the fastest type"),
 }
 COMMIT_SCAN_MUTANTS = {
     "no_commit": (
@@ -195,7 +234,8 @@ def mutate(src: str, old: str, new: str, mark) -> str:
 def build(sources: dict, workdir: Path) -> dict:
     """One nvcc per source, all at once.  sources: name -> (text of a
     ``.cu`` file, the directory its includes are found in); returns name ->
-    library path."""
+    library path.  Each build's compiler output (ptxas registers, spills)
+    is kept beside it as ``<name>.log``."""
     from repro_torch.kernels import build as kbuild
     nvcc = kbuild.nvcc_path()
     procs = {}
@@ -210,6 +250,7 @@ def build(sources: dict, workdir: Path) -> dict:
     out = {}
     for name, (lib, proc) in procs.items():
         log, _ = proc.communicate()
+        (workdir / f"{name}.log").write_text(log)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name}.cu exited {proc.returncode}:\n"
                                f"{log}")
@@ -230,14 +271,17 @@ _PLAIN = {}  # case -> what the first K5 check on it returned last
 
 
 def sched_tables() -> dict:
-    """(n, topo) -> (K4 tables, K5 tables) of the kernel phase, and
-    (kind, arg) -> (None, K5 tables) for K5's further cases
+    """(n, topo) -> (K4 tables, K5 tables) of the kernel phase, (kind, n)
+    -> (K4 tables, None) for K4's further cases (``chip_smoke.EXTRA_K4``),
+    and (kind, arg) -> (None, K5 tables) for K5's
     (``chip_smoke.EXTRA_K5``), built once."""
     if not _SCHED_TABLES:
         for n in chip_smoke.SCHED_SIZES:
             for topo in ("grown", "bursty"):
                 _SCHED_TABLES[(n, topo)] = chip_smoke.sched_tables(
                     n, topo)[:2]
+        for kind, n in chip_smoke.EXTRA_K4:
+            _SCHED_TABLES[(kind, n)] = (chip_smoke.k4_tables(kind, n), None)
         for kind, arg in chip_smoke.EXTRA_K5:
             _SCHED_TABLES[(kind, arg)] = (None,
                                           chip_smoke.extra_tables(kind, arg))
@@ -246,8 +290,8 @@ def sched_tables() -> dict:
 
 def run_cases(kernel: str, lib: Path) -> list:
     """The kernel's cases through the library at ``lib``, on the smoke's
-    inputs (seed 0): K1's bfloat16 cases, every K2 and K3 case, or K4's
-    and K5's fig5 tables."""
+    inputs (seed 0): K1's bfloat16 cases, every K2 and K3 case, or every
+    K4 and K5 case of the kernel phase."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -270,12 +314,13 @@ def run_cases(kernel: str, lib: Path) -> list:
             check = (chip_smoke.find_alloc_check if kernel == "find_alloc"
                      else chip_smoke.commit_scan_check)
             for case, tabs in sched_tables().items():
-                if kernel == "find_alloc":
-                    if tabs[0] is not None:
-                        rows.append({"case": list(case),
-                                     **check(tabs[0])[0]})
+                tab = tabs[0] if kernel == "find_alloc" else tabs[1]
+                if tab is None:
                     continue
-                res = check(tabs[1], _PLAIN.get(case))
+                if kernel == "find_alloc":
+                    rows.append({"case": list(case), **check(tab)[0]})
+                    continue
+                res = check(tab, _PLAIN.get(case))
                 _PLAIN[case] = res[4]
                 rows.append({"case": list(case), **res[0]})
     return rows

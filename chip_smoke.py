@@ -45,7 +45,17 @@ exits non-zero.
    K4, K5: the host tables of the first K4 launch and of a K5 launch over
    the whole greedy order of the fig5 round (n = 256, 1024, 2048; grown
    cluster and bursty 3-pod topology): every result bitwise equal to the
-   plain version's, a spread payoff within one ulp (reported).  K5 also
+   plain version's (K5's runner-up payoff within one ulp, reported).  K4 also
+   runs on tables whose walks the fig5 round never makes (``k4_tables``):
+   "busy", the fig5 grown state at n = 256 and 2048 with a seeded share
+   of the units taken (walks several chunks deep, prefixes that end short
+   of W); "wide", gangs of 16-128 (wmax 128) that choose units of the
+   pool's partial last chunk; "mixed", a 5-type multi_cluster with mixed
+   nodes, jobs that use a subset of the types, a fifth single-node,
+   fractional free units and N not a multiple of 32; "queue", 8192 jobs,
+   more than the card holds warps of K4 at once.  Every K4 case runs
+   twice and must be bitwise deterministic; the log counts the walks past
+   the first chunk and into a partial last one.  K5 also
    runs on the n=256 grown tables with a fractional carry (0.5 added to,
    and taken from, every third key's free: ``frac_tables``) and on two
    seeded tables with pools in random order (``random_tables``: walks that
@@ -171,6 +181,11 @@ SCHED_MAIN = (2048, "grown")
 # unit ("cut")
 EXTRA_K5 = (("frac", 0.5), ("frac", -0.5), ("random", 80), ("random", 170),
             ("cut", 80))
+# K4's further cases (``k4_tables``): (kind, jobs)
+EXTRA_K4 = (("busy", 256), ("busy", 2048), ("wide", 200), ("mixed", 400),
+            ("queue", 8192))
+# the planning horizon of the fig5 round's PriceState (one week)
+HORIZON = 7 * 24 * 3600.0
 # the decision-latency sweep of the schedule phase (both solvers)
 SWEEP_SIZES = (64, 256, 1024, 2048)
 SIM_JOBS = 256
@@ -734,7 +749,7 @@ def sched_tables(n: int, topo: str):
     jobs, cluster, now = fig5_round(n, topo)
     queue = sorted([j for j in jobs if j.arrival <= now],
                    key=lambda j: (j.arrival, j.job_id))
-    ps = PriceState(cluster, queue, 7 * 24 * 3600.0, util, now)
+    ps = PriceState(cluster, queue, HORIZON, util, now)
     avail, gamma = ps.free_arr.copy(), ps.gamma_arr.copy()
     k4 = bs.pricing_tables(queue, avail, gamma, ps, now, util,
                            bs.bucket_size(len(queue)))
@@ -781,9 +796,16 @@ COMMIT_SCAN_OUT = ("free", "gamma", "won", "win", "counts", "win2",
                    "win2_pay", "sp_nserv")
 
 
+def _same_bits(xs, ys) -> bool:
+    import torch
+    return all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+               for x, y in zip(xs, ys))
+
+
 def find_alloc_check(tab):
-    """K4 on the card against its plain version on the same tables.
-    Returns (verdict, args, the kernel's results)."""
+    """K4 on the card, twice, against its plain version on the same
+    tables; the two launches must agree bitwise.  Returns (verdict, args,
+    the kernel's results)."""
     import torch
     from repro_torch.core import batch_solver as bs
     from repro_torch.core.dp import COMM_COST_FRAC
@@ -793,9 +815,13 @@ def find_alloc_check(tab):
                   *(tab[k] for k in bs.FIND_ALLOC_ARGS))
     kw = (tab["n_nodes"], COMM_COST_FRAC, tab["wmax"])
     out = fk.find_alloc(*args, *kw)
+    again = fk.find_alloc(*args, *kw)
     torch.cuda.synchronize()
     want = ref.find_alloc_ref(*args, *kw)
-    return _compare(out, want, FIND_ALLOC_OUT, ("sp_pay",)), args, out
+    verdict = _compare(out, want, FIND_ALLOC_OUT)
+    verdict["deterministic"] = _same_bits(out, again)
+    verdict["ok"] = verdict["ok"] and verdict["deterministic"]
+    return verdict, args, out
 
 
 def commit_scan_check(tab, plain=None):
@@ -819,9 +845,7 @@ def commit_scan_check(tab, plain=None):
         need = []
         plain = (ref.commit_scan_ref(*args, *kw, need=need), need)
     verdict = _compare(out, plain[0], COMMIT_SCAN_OUT, ("win2_pay",))
-    verdict["deterministic"] = all(
-        torch.equal(x.view(torch.uint8), y.view(torch.uint8))
-        for x, y in zip(out, again))
+    verdict["deterministic"] = _same_bits(out, again)
     verdict["ok"] = verdict["ok"] and verdict["deterministic"]
     return verdict, args, out, plain[1], plain
 
@@ -856,30 +880,57 @@ def find_alloc_bound(tab) -> tuple:
     key of the chosen units), the slot tables written once; or its
     float64 operations (prefix sums, takes and cost sums over the (node,
     rank) cells, the chosen units' sums) at the f64 peak."""
-    import numpy as np
     B, M = tab["rank"].shape
     R = tab["u_tab"].shape[1]
-    N, L = tab["n_nodes"], tab["s_rank"].shape[1]
+    N = tab["n_nodes"]
+    reach, chosen = walk_reach(tab)
+    walk = reach.max(axis=1)
+    nbytes = (tab["avail"].nbytes + tab["cumP"].nbytes
+              + tab["node_row"].nbytes
+              + B * (8 + 4 + 1 + M * 4 + R * 8)
+              + int(walk.sum()) * 5 + int(chosen.sum()) * 12
+              + B * N * (1 + 4 + 4 + 8 + 8 + R * 8)
+              + B * R * (1 + 8 + 4 + 4 + M * 4))
+    flops = B * N * R * 6 + int(chosen.sum()) * 2
+    return _time_bound(nbytes, flops) + (nbytes, flops)
+
+
+def walk_reach(tab) -> tuple:
+    """Per job and spread prefix k = 1..R of K4's tables, as the plain
+    version walks the job's pool: (the entries read through its W-th
+    eligible unit, or the whole pool when it has fewer; 0 for a job that
+    asks for no unit or may use no type), (the units it chooses), both
+    (B, R) int64."""
+    import numpy as np
+    B, L = tab["s_rank"].shape
+    R = tab["u_tab"].shape[1]
     W = tab["W"].astype(np.int64)
-    walk = np.zeros(B, dtype=np.int64)
-    chosen = 0
+    reach = np.zeros((B, R), dtype=np.int64)
+    chosen = np.zeros((B, R), dtype=np.int64)
     for k in range(1, R + 1):
         elig = tab["s_valid"] & (tab["s_rank"] < k)
         cs = np.cumsum(elig, axis=1)
         total = cs[:, -1] if L else np.zeros(B, dtype=np.int64)
-        reach = np.where(total >= W, np.argmax(cs >= W[:, None], axis=1) + 1,
-                         L)
-        reach = np.where((W == 0) | (tab["Kj"] == 0), 0, reach)
-        walk = np.maximum(walk, reach)
-        chosen += int(np.minimum(W, total).sum())
-    nbytes = (tab["avail"].nbytes + tab["cumP"].nbytes
-              + tab["node_row"].nbytes
-              + B * (8 + 4 + 1 + M * 4 + R * 8)
-              + int(walk.sum()) * 5 + chosen * 12
-              + B * N * (1 + 4 + 4 + 8 + 8 + R * 8)
-              + B * R * (1 + 8 + 4 + 4 + M * 4))
-    flops = B * N * R * 6 + chosen * 2
-    return _time_bound(nbytes, flops) + (nbytes, flops)
+        r = np.where(total >= W, np.argmax(cs >= W[:, None], axis=1) + 1, L)
+        reach[:, k - 1] = np.where((W == 0) | (tab["Kj"] == 0), 0, r)
+        chosen[:, k - 1] = np.minimum(W, total)
+    return reach, chosen
+
+
+def walk_stats(tab) -> dict:
+    """How deep the plain version's walks go on K4's tables: the walks
+    (job, prefix) that read past the pool's first 32-entry chunk, those
+    that read into its partial last chunk (none when the pool length L is
+    a multiple of 32), and those that end short of W (the whole pool)."""
+    import numpy as np
+    reach, chosen = walk_reach(tab)
+    L = tab["s_rank"].shape[1]
+    tail = L - L % 32
+    short = (reach == L) & (chosen < tab["W"].astype(np.int64)[:, None])
+    return {"walks": int((reach > 0).sum()),
+            "past_chunk1": int((reach > 32).sum()),
+            "partial_chunk": int((reach > tail).sum()) if L % 32 else 0,
+            "short_of_W": int(short.sum())}
 
 
 def commit_scan_bound(tab, need) -> tuple:
@@ -905,10 +956,10 @@ def commit_scan_bound(tab, need) -> tuple:
 
 def sched_case(n: int, topo: str):
     """K4 and K5 on one fig5 round's tables: check (raises on any
-    difference beyond one ulp of a spread payoff), then time each kernel
-    on the card (``ms``), each call of its wrapper as the decision path
-    makes it (``wrapper_ms``: checks, allocation, a read of max W, launch)
-    and its plain version.  Returns two rows."""
+    difference; K5's runner-up payoff may differ by one ulp), then time
+    each kernel on the card (``ms``), each call of its wrapper as the
+    decision path makes it (``wrapper_ms``: checks, allocation, a read of
+    max W, launch) and its plain version.  Returns two rows."""
     from repro_torch.core.dp import COMM_COST_FRAC
     from repro_torch.kernels import commit_scan as ck
     from repro_torch.kernels import find_alloc as fk
@@ -1022,6 +1073,95 @@ def extra_case(kind: str, arg) -> dict:
     return {"kernel": "commit_scan", "case": [kind, arg], **verdict}
 
 
+def k4_tables(kind: str, n: int, seed: int = 0) -> dict:
+    """The host tables of one K4 launch, built by
+    ``batch_solver.pricing_tables`` on a ``PriceState`` of the round, for
+    one of ``EXTRA_K4`` (``n`` jobs, draws from ``seed``):
+
+    - "busy": the fig5 grown round with units taken, drawn key by key
+      (free down, gamma up by the same units, as the greedy commit's waves
+      take them): all of the fastest type's (v100), 60% of p100's, 20% of
+      k80's.  The fast types' remaining units are then dearer than the
+      slow types' and sort behind them, so walks go several chunks deep,
+      and prefixes without W units of their types walk the whole pool;
+    - "wide": the fig5 grown round with gangs of 16-128 (wmax 128, NumPy's
+      eight running sums with a remainder), every unit free: at n = 200
+      (25 node rows, L = 100) the largest gangs choose units of the pool's
+      partial last chunk, and those of more than 100 walk all of it;
+    - "mixed": the philly trace at t=0 on a 5-pod ``multi_cluster`` of five
+      types, half of each pod's 13 nodes mixed (N = 65, two keys on a mixed
+      node), three quarters of the jobs restricted to 1-4 of the types, a
+      fifth single-node, units taken as in "busy" (all of v100's, 90% of
+      p100's, 50% of k80's, 20% of t4's, 95% of rtx3090's) and 0.5 more
+      from every third key that keeps a unit (fractional free units);
+    - "queue": n jobs of the philly trace at t=0 on the fig5 grown cluster
+      of 256 jobs (32 nodes), three quarters restricted to 1-2 of the
+      types as in "mixed" (so a key's rank, and the cell it fills, differ
+      from job to job): at n = 8192 more jobs than the card holds warps of
+      K4 at once, so most jobs' blocks start in shared memory that another
+      job's block has just left.
+
+    The taken units are drawn from ``seed + 1``, so the state is the same
+    whatever ``n``."""
+    import numpy as np
+    from repro_torch.core import batch_solver as bs
+    from repro_torch.core.pricing import PriceState
+    from repro_torch.core.trace import grown_cluster, multi_cluster, \
+        philly_trace
+    from repro_torch.core.utility import effective_throughput as util
+    rs = np.random.RandomState(seed)
+    if kind in ("mixed", "queue"):
+        cluster = (multi_cluster(n_pods=5, nodes_per_pod=13, gpus_per_node=4,
+                                 mixed_frac=0.5, seed=3) if kind == "mixed"
+                   else grown_cluster(256))
+        types = cluster.gpu_types
+        jobs, now = philly_trace(n_jobs=n, seed=4, types=types), 0.0
+        for j in jobs:
+            if rs.rand() < 0.75:
+                keep = set(rs.permutation(types)[:rs.randint(1, len(types))])
+                j.throughput = {r: x for r, x in j.throughput.items()
+                                if r in keep}
+            j.single_node = kind == "mixed" and bool(rs.rand() < 0.2)
+    else:
+        jobs, cluster, now = fig5_round(n, "grown")
+        if kind == "wide":
+            for j in jobs:
+                j.n_workers = int(rs.randint(16, 129))
+    queue = sorted([j for j in jobs if j.arrival <= now],
+                   key=lambda j: (j.arrival, j.job_id))
+    ps = PriceState(cluster, queue, HORIZON, util, now)
+    avail, gamma = ps.free_arr.copy(), ps.gamma_arr.copy()
+    if kind in ("busy", "mixed"):  # the same state whatever n
+        share = np.array([1.0, 0.6, 0.2] if kind == "busy"
+                         else [1.0, 0.9, 0.5, 0.2, 0.95])[ps.type_col]
+        taken = np.random.RandomState(seed + 1).binomial(
+            avail.astype(np.int64), share)
+        avail -= taken
+        gamma += taken
+    if kind == "mixed":
+        keys = np.arange(0, len(avail), 3)
+        avail[keys[avail[keys] >= 1.0]] -= 0.5
+    return bs.pricing_tables(queue, avail, gamma, ps, now, util,
+                             bs.bucket_size(len(queue)))
+
+
+def k4_case(kind: str, n: int) -> dict:
+    """K4 on ``k4_tables(kind, n)``, checked as ``sched_case`` checks it
+    (raises on a difference); not timed.  Logs how deep the walks go."""
+    tab = k4_tables(kind, n)
+    verdict = find_alloc_check(tab)[0]
+    if not verdict["ok"]:
+        raise RuntimeError(f"find_alloc disagrees with its plain version "
+                           f"on the {kind} tables (n={n}): {verdict}")
+    walks = walk_stats(tab)
+    B, M = tab["rank"].shape
+    log(f"[kernel] find_alloc {kind} n={n} B={B} M={M} N={tab['n_nodes']} "
+        f"R={tab['u_tab'].shape[1]} L={tab['s_rank'].shape[1]} wmax="
+        f"{tab['wmax']}: bitwise={not verdict['mismatched']} "
+        f"deterministic={verdict['deterministic']} walks {walks}")
+    return {"kernel": "find_alloc", "case": [kind, n], **verdict, **walks}
+
+
 def numpy_sum_check(seed: int) -> int:
     """The kernels replicate NumPy's pairwise float64 sum
     (``ref.pairwise_sum``); check that the NumPy running this script
@@ -1054,6 +1194,7 @@ def phase_kernel(seed: int):
         f"{numpy_sum_check(seed)} rows")
     sched_rows = [row for n in SCHED_SIZES for topo in ("grown", "bursty")
                   for row in sched_case(n, topo)]
+    sched_rows += [k4_case(*case) for case in EXTRA_K4]
     sched_rows += [extra_case(*case) for case in EXTRA_K5]
     main = {"flash_attention": next(r for r in rows if r["model_layout"]),
             "rwkv6_scan": next(r for r in rwkv_rows if r["kind"] == "main"),

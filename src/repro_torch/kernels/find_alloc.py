@@ -123,8 +123,9 @@ def launch(ins, out, n_nodes: int, comm_frac: float, wmax: int):
         err = _kernel()(*(t.data_ptr() for t in (*ins, *out)), B, M,
                         n_nodes, R, C1, L, wmax, comm_frac, stream)
     if err == SMEM_EXCEEDED:
-        raise ValueError(f"find_alloc: N={n_nodes}, R={R}, wmax={wmax} "
-                         f"need more shared memory than a block has")
+        raise ValueError(f"find_alloc: N={n_nodes}, R={R}, M={M}, "
+                         f"wmax={wmax} need more shared memory than a block "
+                         f"has")
     if err != 0:
         raise RuntimeError(f"find_alloc kernel launch failed: cudaError "
                            f"{err}")

@@ -288,6 +288,68 @@ def _agrees_with_jax(tab, pay_ulps=0):
             assert np.array_equal(w, g)
 
 
+def _jax_find_alloc(tab):
+    """The JAX package's K4 (``_build_kernel``) on tables that the port's
+    ``pricing_tables`` built; the extra inputs the JAX kernel takes (the
+    pool's ratios and their stable order) are rebuilt as ``pricing_tables``
+    sorts them."""
+    jt, P, C = tab["jt"], tab["P"], tab["C"]
+    B = tab["rank"].shape[0]
+    valid = jt.usable[:, :, None] \
+        & (np.arange(C)[None, :] < tab["avail"][:, None])
+    ratio = np.where(valid, P[None] / jt.x_key[:, :, None], np.inf)
+    order = np.argsort(ratio.reshape(B, -1), axis=-1, kind="stable")
+    assert np.array_equal(order // C, tab["s_key"])
+    with jax.enable_x64():
+        want = jbs._build_kernel(tab["n_nodes"], tab["u_tab"].shape[1],
+                                 COMM_COST_FRAC)(*map(jnp.asarray, (
+                                     tab["avail"], P, tab["cumP"],
+                                     tab["node_row"], tab["W"], tab["Kj"],
+                                     tab["rank"], tab["u_tab"], tab["single"],
+                                     tab["s_rank"], tab["s_valid"],
+                                     tab["s_price"],
+                                     np.take_along_axis(
+                                         ratio.reshape(B, -1), order, -1),
+                                     order, ratio)))
+        return [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("kind,n", [("busy", 64), ("busy", 256),
+                                    ("wide", 64), ("mixed", 120),
+                                    ("queue", 96)])
+def test_smoke_k4_tables(jax_kernels, kind, n):
+    """``chip_smoke.k4_tables``: K4's further cases reach what each is
+    for (walks past the pool's first chunk, prefixes short of W, a partial
+    last chunk; gangs up to 128; mixed nodes, subsets of the types,
+    single-node jobs, fractional free units; more jobs than node rows), and
+    the plain version agrees with the JAX package's K4 on them bitwise."""
+    smoke = _smoke()
+    tab = smoke.k4_tables(kind, n)
+    walks = smoke.walk_stats(tab)
+    R, N = tab["u_tab"].shape[1], tab["n_nodes"]
+    J = n
+    assert (walks["past_chunk1"] > 0) == (kind != "queue")
+    if kind == "queue":
+        assert N == 32 and len(tab["W"]) >= J > N
+    if kind == "busy":
+        assert walks["short_of_W"] > 0
+    if kind == "wide":
+        assert tab["wmax"] == 128 and tab["W"][:J].min() >= 16
+        assert (tab["W"][:J] % 8 != 0).any()
+    if kind == "mixed":
+        assert R >= 4 and N % 32 and walks["partial_chunk"] > 0
+        assert (tab["Kj"][:J] < R).any() and tab["single"][:J].any()
+        assert (tab["avail"] % 1.0 != 0).any()
+        assert (np.bincount(tab["node_row"]) > 1).any()   # mixed nodes
+    want = _jax_find_alloc(tab)
+    got = ref.find_alloc_ref(*(_t(tab[k]) for k in tbs.FIND_ALLOC_ARGS), N,
+                             COMM_COST_FRAC, tab["wmax"])
+    assert want[6].any()                     # spread slots
+    assert want[0].any() == (kind != "wide")  # gangs of 16+ fit no node
+    for w, g in zip(want, got):
+        assert np.array_equal(w.astype(g.numpy().dtype), g.numpy())
+
+
 @pytest.mark.parametrize("delta", [0.5, -0.5])
 def test_smoke_frac_tables(jax_kernels, delta):
     """``chip_smoke.frac_tables``: the fig5 K5 tables with ``delta`` on
