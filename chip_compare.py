@@ -17,8 +17,9 @@ S=1024 D=64, bf16 r/k/v in model layout, f32 w; K5: the fig5 n=2048 grown
 and bursty tables, ``chip_smoke.commit_scan_check``: bitwise, twice; K4:
 the fig5 n=2048 grown and bursty tables, the n=256 "busy" and n=8192
 "queue" ones of ``chip_smoke.k4_tables``, ``chip_smoke.find_alloc_check``:
-bitwise, twice; and every launch of the smoke's 256-job ``simulate``,
-recorded with its inputs, each bitwise against its plain version), then
+bitwise, twice; and every launch of the smoke's 256-job ``simulate`` and
+of its faulted event run, recorded with its inputs, each bitwise against
+its plain version), then
 timed through ``chip_mutants.swapped``, the builds in turn, forwards then
 backwards, ``--rounds`` times:
 
@@ -40,11 +41,11 @@ For K3, ``F.rms_norm`` takes its cold and warm turns beside the builds (a
 yardstick only).  K4 and K5 have no forward.  K4 has two more modes:
 "outputs to host", the host-clock time of copying one launch's 11
 outputs to host NumPy arrays as ``batch_solver.find_alloc_batch`` does;
-and, on the "simulate" case, "launches", the total device time of that
-run's launches back to back, each on its own recorded tables.  Every
-build's ``ptxas`` lines (registers, spills) are printed first.  Reports
-every time and each median; exits non-zero if a build fails a gate.
-Needs a card.
+and, on the "simulate" and "events" cases, "launches", the total device
+time of that run's launches back to back, each on its own recorded
+tables.  Every build's ``ptxas`` lines (registers, spills) are printed
+first.  Reports every time and each median; exits non-zero if a build
+fails a gate.  Needs a card.
 """
 from __future__ import annotations
 
@@ -68,7 +69,8 @@ CASES = {"rmsnorm": [(4096, 2048, "bfloat16", "bfloat16", "main", 50),
          "commit_scan": [(2048, "grown", 10), (2048, "bursty", 10)],
          "find_alloc": [(2048, "grown", 20), (2048, "bursty", 20),
                         (256, "busy", 20), (8192, "queue", 10),
-                        (chip_smoke.SIM_JOBS, "simulate", 0)]}
+                        (chip_smoke.SIM_JOBS, "simulate", 0),
+                        (chip_smoke.SIM_JOBS, "events", 0)]}
 # kernel -> (a part of its CUDA kernels' names, [(model, layers)]): the
 # forwards it is timed in
 FORWARDS = {"rmsnorm": ("rmsnorm", [("llama3.2-1b", 4), ("rwkv6-7b", 2)]),
@@ -135,14 +137,14 @@ def _find_alloc_case(case):
     ``chip_smoke.k4_tables``): "cold", every launch on its own copy of the
     inputs and of the outputs, copies cycled past L2; "outputs to host",
     the host-clock time of copying one launch's outputs to host NumPy
-    arrays.  The "simulate" case is ``_find_alloc_path``."""
+    arrays.  The "simulate" and "events" cases are ``_find_alloc_path``."""
     import time
     import torch
     from repro_torch.core.dp import COMM_COST_FRAC
     from repro_torch.kernels import find_alloc as fk
     n, kind, iters = case
-    if kind == "simulate":
-        return _find_alloc_path(n)
+    if kind in PATH_RUNS:
+        return _find_alloc_path(n, kind)
     tab = (chip_smoke.k4_tables(kind, n) if kind in dict(chip_smoke.EXTRA_K4)
            else chip_smoke.sched_tables(n, kind)[0])
     _, args, out = chip_smoke.find_alloc_check(tab)
@@ -164,18 +166,36 @@ def _find_alloc_case(case):
              "outputs to host": to_host}, {})
 
 
-def _find_alloc_path(n: int):
-    """K4's launches in the smoke's ``simulate`` of the ``n``-job fig5
-    trace (``chip_smoke.phase_simulate``, cuda solver), each recorded
-    with its inputs.  The check runs each recorded launch once against
-    its plain version, bitwise; the timer, "launches", runs all of them
-    back to back on the card (``device_ms``), each on its own tables, and
-    returns their total device time in ms."""
+def _simulate_run(jobs, cluster):
+    from repro_torch.core.hadar import HadarScheduler
+    from repro_torch.core.simulator import simulate
+    simulate(HadarScheduler(solver="cuda"), jobs, cluster)
+
+
+def _events_run(jobs, cluster):
+    from repro_torch.core.hadar import HadarScheduler
+    from repro_torch.sim.engine import simulate_events
+    from repro_torch.sim.faults import FailureModel
+    simulate_events(HadarScheduler(solver="cuda"), jobs, cluster,
+                    faults=FailureModel(**chip_smoke.FAULT_MODEL))
+
+
+# K4's recorded paths: the smoke's 256-job ``simulate``
+# (``chip_smoke.phase_simulate``) and its faulted event run
+# (``chip_smoke.phase_events``), cuda solver
+PATH_RUNS = {"simulate": _simulate_run, "events": _events_run}
+
+
+def _find_alloc_path(n: int, kind: str):
+    """K4's launches in one of the smoke's runs of the ``n``-job fig5
+    trace (``PATH_RUNS``), each recorded with its inputs.  The check runs
+    each recorded launch once against its plain version, bitwise; the
+    timer, "launches", runs all of them back to back on the card
+    (``device_ms``), each on its own tables, and returns their total
+    device time in ms."""
     from collections import Counter
     from unittest import mock
     import torch
-    from repro_torch.core.hadar import HadarScheduler
-    from repro_torch.core.simulator import simulate
     from repro_torch.core.types import clone_jobs
     from repro_torch.kernels import find_alloc as fk
     from repro_torch.kernels import ref
@@ -186,7 +206,7 @@ def _find_alloc_path(n: int):
         real(ins, out, *kw)
     jobs, cluster, _ = chip_smoke.fig5_round(n, "grown")
     with mock.patch.object(fk, "launch", record):
-        simulate(HadarScheduler(solver="cuda"), clone_jobs(jobs), cluster)
+        PATH_RUNS[kind](clone_jobs(jobs), cluster)
     plain = [ref.find_alloc_ref(*ins, *kw) for ins, kw in seen]
     outs = [fk.find_alloc(*ins, *kw) for ins, kw in seen]  # the layout
     calls = [lambda ins=ins, o=o, kw=kw: fk.launch(ins, o, *kw)

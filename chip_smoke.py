@@ -7,7 +7,8 @@ Builds every hand-written kernel from ``src/repro_torch/kernels/csrc`` and
 drives the port's paths with random weights and traces from ``--seed``:
 llama3.2-1b and rwkv6-7b at full width and depth (flash attention K1, the
 WKV6 scan K2, RMSNorm K3) and the Hadar decision path on the fig5 shape
-(FIND_ALLOC K4, the greedy commit K5).  Any failure raises and the script
+(FIND_ALLOC K4, the greedy commit K5), through the round and the event
+engine, with and without faults.  Any failure raises and the script
 exits non-zero.
 
 1. kernel  -- each kernel against its plain PyTorch version
@@ -94,9 +95,27 @@ exits non-zero.
    allocation, cost, payoff, rate) must be identical, the cuda round must
    launch K4 and K5 (n >= 256) and the numpy round nothing.  The seconds
    per round of both are the sweep that will calibrate ``auto``.
-7. simulate -- ``simulate`` of the 256-job fig5 trace with both solvers:
-   average JCT, makespan and every finish time equal; K4 and K5 launched
-   by the cuda run only.
+7. simulate -- ``simulate`` of the 256-job fig5 trace with both solvers,
+   then the same through ``simulate_rounds`` under a seeded
+   ``FailureModel`` (``FAULT_MODEL``): every result field but host time
+   equal (average JCT, makespan, each finish time, evictions, lost
+   GPU-seconds, each round record); K4 and K5 launched by the cuda runs
+   only; the faulted run's rounds, evictions, average JCT and makespan
+   those of the JAX package (``REF_ROUNDS_FAULTED``).
+8. events -- ``simulate_events`` of the same trace under the same model
+   with both solvers: every result field but host time equal; K4 and K5
+   launched by the cuda run only; events, consults and evictions those of
+   the JAX package, its average JCT and makespan within 1e-9 relative
+   (``REF_EVENTS``).  Reports each solver's wall and seconds a consult,
+   K4's and K5's launches, K4's job buckets B and the ``PriceState``s
+   built; the cuda run is traced by ``torch.profiler`` for the device
+   time of K4, K5 and all the device's work, and its share of the wall.
+9. mini -- ``examples/traces/philly_mini.csv`` on ``simulation_cluster()``
+   through both engines and both solvers, under its fault CSV and under a
+   hand-made trace that downs the five K80 nodes together, and a 48-job
+   fig5 trace through the event engine with the K80s down from t=0: each
+   cuda run equal to its numpy run and launching K4; under the outage K4,
+   and on the 48-job trace K5, took tables with R = 2.
 
 Full-depth agreement of the two model paths is printed, not gated: the
 random init makes a deep stack chaotic.  It prints a ``{"kernels":
@@ -189,6 +208,31 @@ HORIZON = 7 * 24 * 3600.0
 # the decision-latency sweep of the schedule phase (both solvers)
 SWEEP_SIZES = (64, 256, 1024, 2048)
 SIM_JOBS = 256
+# the failure model of the faulted runs (phases 7 and 8): on
+# grown_cluster(256), 32 nodes, it draws 94 windows over its week, 27 of
+# them spot reclaims
+FAULT_MODEL = dict(seed=7, mtbf_hours=72.0, spot_frac=0.2,
+                   spot_reclaim_hours=24.0)
+# The JAX package's results for the same runs: its simulate_events and
+# simulate_rounds (repro.sim.engine) with its own
+# HadarScheduler(solver="numpy"), philly_trace(256, seed=1) on the fig5
+# grown cluster and FAULT_MODEL, run once on a CPU.
+REF_EVENTS = {"n_events": 1190, "sched_calls": 929, "evictions": 99,
+              "avg_jct_s": 118650.07469017516,
+              "makespan_s": 230066.13249397563}
+REF_ROUNDS_FAULTED = {"rounds": 634, "evictions": 94,
+                      "avg_jct_s": 113022.73121100904,
+                      "makespan_s": 228181.08333333334}
+REF_REL_TOL = 1e-9
+# phase 9: philly_mini on simulation_cluster(), whose nodes 10-14 are its
+# K80s; the type outage downs them together (R drops from 3 to 2) over
+# four of the trace's arrivals, and over the first consults of a 48-job
+# fig5 trace, whose queue takes the greedy path (K5)
+MINI_TRACE = ROOT / "examples" / "traces" / "philly_mini.csv"
+MINI_FAULTS = ROOT / "examples" / "traces" / "philly_mini_faults.csv"
+K80_NODES = range(10, 15)
+K80_OUTAGE = (7200.0, 40000.0)
+OUTAGE_JOBS = 48
 # timed forward calls per prefill path (the median is reported)
 FORWARD_REPS = 5
 # H100 SXM float64 peak without tensor cores (NVIDIA data sheet)
@@ -1579,45 +1623,236 @@ def phase_schedule():
     return rows
 
 
+def _sim_fields(res) -> tuple:
+    """Every field of a simulation result but the host time
+    ``sched_seconds``: each job's finish, progress, restarts, evictions
+    and lost work, each round or interval record, and the totals."""
+    jobs = tuple((j.job_id, j.finish_time, j.done_iters, j.restarts,
+                  j.evictions, j.lost_iters, j.attained_service)
+                 for j in sorted(res.jobs, key=lambda j: j.job_id))
+    recs = tuple(dataclasses.astuple(dataclasses.replace(
+        r, sched_seconds=0.0)) for r in res.rounds)
+    return jobs, recs, (res.total_seconds, res.avg_jct(),
+                        res.gpu_seconds_busy, res.gpu_seconds_avail,
+                        res.gpu_seconds_lost, res.evictions,
+                        getattr(res, "n_events", None),
+                        getattr(res, "sched_calls", None))
+
+
+def _recorded(real, log: list, table: int):
+    """A kernel's ``launch`` that also notes each launch's (B, R), the
+    shape of its utility table, input ``table``."""
+    def launch(ins, out, *kw):
+        real(ins, out, *kw)
+        log.append(tuple(ins[table].shape))
+    return launch
+
+
+def _device_ms(prof) -> dict:
+    """From a ``torch.profiler`` trace: the device time (ms) of K4's and
+    K5's launches, and of all the device's work (kernels and copies)."""
+    import torch
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ms = {"k4_ms": 0.0, "k5_ms": 0.0,
+          "device_ms": sum(e.time_range.elapsed_us() for e in dev) / 1e3}
+    for key, part in (("k4_ms", "find_alloc"), ("k5_ms", "commit_scan")):
+        ms[key] = sum(e.time_range.elapsed_us() for e in dev
+                      if part in e.name) / 1e3
+    return ms
+
+
+def run_sim(engine: str, solver: str, jobs, cluster, faults=None,
+            profile: bool = False) -> dict:
+    """One run of ``simulate_rounds`` or ``simulate_events`` with
+    ``HadarScheduler(solver)``, the launch counts set to 0 just before it
+    and read just after.  Also notes each K4 and K5 launch's job bucket B
+    and type count R, and how many ``PriceState``s the scheduler built.
+    ``profile``: trace the run with ``torch.profiler`` and report the
+    device time of K4, K5 and all the device's work (``_device_ms``)."""
+    import contextlib
+    from collections import Counter
+    import torch
+    from torch.profiler import ProfilerActivity
+    from repro_torch.core import hadar
+    from repro_torch.core.types import clone_jobs
+    from repro_torch.kernels import commit_scan as ck
+    from repro_torch.kernels import find_alloc as fk
+    from repro_torch.sim import engine as eng
+    builds = [0]
+
+    class Counted(hadar.PriceState):
+        def __init__(self, *a, **kw):
+            builds[0] += 1
+            super().__init__(*a, **kw)
+    k4, k5 = [], []
+    jobs = clone_jobs(jobs)
+    prof = (torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+            if profile else contextlib.nullcontext())
+    with mock.patch.object(hadar, "PriceState", Counted), \
+            mock.patch.object(fk, "launch", _recorded(fk.launch, k4, 7)), \
+            mock.patch.object(ck, "launch", _recorded(ck.launch, k5, 8)):
+        torch.cuda.synchronize()
+        zero_launches()
+        with prof:
+            t0 = time.perf_counter()
+            res = getattr(eng, f"simulate_{engine}")(
+                hadar.HadarScheduler(solver=solver), jobs, cluster,
+                faults=faults)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+    consults = [r.sched_seconds for r in res.rounds if r.sched_seconds > 0]
+    out = {"res": res, "fields": _sim_fields(res), "wall_s": wall,
+           "consults": getattr(res, "sched_calls", len(consults)),
+           "sched_s": sum(consults), "launches": launches,
+           "price_states": builds[0],
+           "k4_B": dict(sorted(Counter(b for b, _ in k4).items())),
+           "k4_R": sorted({r for _, r in k4}),
+           "k5_R": sorted({r for _, r in k5})}
+    if profile:
+        out.update(_device_ms(prof))
+        out["device_share"] = out["device_ms"] / 1e3 / wall
+    return out
+
+
+def _check_pair(phase: str, runs: dict, k5: bool = True):
+    """The cuda and numpy runs of one path: every result field but the
+    host time equal, and the kernels launched by the cuda run only (K5
+    too where ``k5``)."""
+    if runs["cuda"]["fields"] != runs["numpy"]["fields"]:
+        raise RuntimeError(f"{phase}: the cuda and numpy solvers give "
+                           f"different results")
+    got = runs["cuda"]["launches"]
+    if any(runs["numpy"]["launches"].values()) or not got["find_alloc"] \
+            or (k5 and not got["commit_scan"]):
+        raise RuntimeError(f"{phase}: launches cuda {got}, numpy "
+                           f"{runs['numpy']['launches']}")
+
+
+def _check_reference(phase: str, res, want: dict, counts: dict):
+    """``res`` against the JAX package's run of the same path: the counts
+    exactly, average JCT and makespan within REF_REL_TOL."""
+    for key, value in counts.items():
+        if value != want[key]:
+            raise RuntimeError(f"{phase}: {key} {value}, the JAX package "
+                               f"{want[key]}")
+    for key, value in (("avg_jct_s", res.avg_jct()),
+                       ("makespan_s", res.total_seconds)):
+        if abs(value - want[key]) > REF_REL_TOL * abs(want[key]):
+            raise RuntimeError(f"{phase}: {key} {value!r}, the JAX package "
+                               f"{want[key]!r}")
+
+
+def _summary(runs: dict) -> dict:
+    out = {}
+    for solver, run in runs.items():
+        res = run["res"]
+        out[solver] = {k: v for k, v in run.items()
+                       if k not in ("res", "fields")}
+        out[solver].update(avg_jct_s=res.avg_jct(),
+                           makespan_s=res.total_seconds,
+                           evictions=res.evictions,
+                           lost_gpu_s=res.gpu_seconds_lost,
+                           records=len(res.rounds),
+                           s_per_consult=run["sched_s"] / max(
+                               1, run["consults"]))
+    return out
+
+
 def phase_simulate():
     """``simulate`` of the fig5 trace of SIM_JOBS jobs on its grown
-    cluster with ``solver="cuda"`` and ``"numpy"``: average JCT, makespan
-    and every job's finish time must be equal; the cuda run must launch
-    K4 and K5, the numpy run no kernel."""
-    from repro_torch.core.hadar import HadarScheduler
-    from repro_torch.core.simulator import simulate
-    from repro_torch.core.types import clone_jobs
+    cluster with ``solver="cuda"`` and ``"numpy"``, then the same through
+    ``simulate_rounds`` under FAULT_MODEL: every result field but host
+    time equal; the cuda runs launch K4 and K5, the numpy runs no kernel;
+    the faulted run's rounds, evictions, average JCT and makespan those
+    of the JAX package (REF_ROUNDS_FAULTED)."""
+    from repro_torch.sim.faults import FailureModel
     jobs, cluster, _ = fig5_round(SIM_JOBS, "grown")
-    res = {}
-    for solver in ("cuda", "numpy"):
-        zero_launches()
-        t0 = time.perf_counter()
-        r = simulate(HadarScheduler(solver=solver), clone_jobs(jobs), cluster)
-        wall = time.perf_counter() - t0
-        res[solver] = {
-            "avg_jct_s": r.avg_jct(), "makespan_s": r.total_seconds,
-            "finish": [j.finish_time for j in sorted(r.jobs,
-                                                     key=lambda j: j.job_id)],
-            "rounds": len(r.rounds),
-            "consultations": sum(1 for x in r.rounds if x.sched_seconds > 0),
-            "sched_s": sum(x.sched_seconds for x in r.rounds),
-            "wall_s": wall, "launches": read_launches()}
-    same = all(res["cuda"][k] == res["numpy"][k]
-               for k in ("avg_jct_s", "makespan_s", "finish", "rounds"))
-    out = {"jobs": SIM_JOBS, "equal": same,
-           **{f"{b}_{k}": v for b in res for k, v in res[b].items()
-              if k != "finish"}}
-    log("[simulate] " + json.dumps(out))
-    if not same:
-        raise RuntimeError("simulate: the cuda and numpy solvers give "
-                           "different results")
-    if any(res["numpy"]["launches"].values()) or not (
-            res["cuda"]["launches"]["find_alloc"]
-            and res["cuda"]["launches"]["commit_scan"]):
-        raise RuntimeError(f"simulate: launches cuda "
-                           f"{res['cuda']['launches']}, numpy "
-                           f"{res['numpy']['launches']}")
+    out = {"jobs": SIM_JOBS}
+    for name, faults in (("plain", None),
+                         ("faulted", FailureModel(**FAULT_MODEL))):
+        runs = {s: run_sim("rounds", s, jobs, cluster, faults)
+                for s in ("cuda", "numpy")}
+        out[name] = _summary(runs)
+        log(f"[simulate] {name} " + json.dumps(out[name]))
+        _check_pair(f"simulate {name}", runs)
+        if faults is not None:
+            res = runs["numpy"]["res"]
+            _check_reference("simulate faulted", res, REF_ROUNDS_FAULTED, {
+                "rounds": len(res.rounds), "evictions": res.evictions})
     return out
+
+
+def phase_events():
+    """``simulate_events`` of the fig5 trace of SIM_JOBS jobs on its grown
+    cluster under FAULT_MODEL, with ``solver="cuda"`` and ``"numpy"``:
+    every result field but host time equal (average JCT, makespan, each
+    finish time, evictions, lost GPU-seconds, events, consults, each
+    interval record); K4 and K5 launched by the cuda run only; the
+    events, consults and evictions those of the JAX package, its average
+    JCT and makespan within REF_REL_TOL (REF_EVENTS).  Reports each
+    solver's wall and seconds a consult, K4's and K5's launches, K4's job
+    buckets, the PriceStates built, and from ``torch.profiler``'s trace
+    of the cuda run the device time of K4, K5 and all the device's work,
+    and that work's share of the run's wall (the profiler is on during
+    that run)."""
+    from repro_torch.sim.faults import FailureModel
+    jobs, cluster, _ = fig5_round(SIM_JOBS, "grown")
+    model = FailureModel(**FAULT_MODEL)
+    runs = {s: run_sim("events", s, jobs, cluster, model,
+                       profile=s == "cuda")
+            for s in ("cuda", "numpy")}
+    windows = model.sample(cluster)
+    out = {"jobs": SIM_JOBS, "windows": len(windows),
+           "spot_windows": sum(w.kind == "spot" for w in windows),
+           **_summary(runs)}
+    log("[events] " + json.dumps(out))
+    _check_pair("events", runs)
+    res = runs["numpy"]["res"]
+    _check_reference("events", res, REF_EVENTS, {
+        "n_events": res.n_events, "sched_calls": res.sched_calls,
+        "evictions": res.evictions})
+    return out
+
+
+def phase_mini():
+    """The type outage: philly_mini through both engines and both solvers
+    on simulation_cluster(), under its fault CSV and under a hand-made
+    trace that downs every K80 node together (the view's R drops to 2),
+    and the 48-job fig5 trace through the event engine with the K80s
+    down from t=0.  Each cuda run equal to its numpy run and launching
+    K4; under the outage K4 (and on the 48-job trace K5) took R = 2."""
+    from repro_torch.core.trace import philly_trace, simulation_cluster
+    from repro_torch.sim.faults import FailureTrace
+    from repro_torch.sim.replay import load_fault_csv, load_trace_csv
+    cluster = simulation_cluster()
+    mini = load_trace_csv(str(MINI_TRACE), types=cluster.gpu_types)
+    wide = philly_trace(n_jobs=OUTAGE_JOBS, seed=1, types=cluster.gpu_types)
+    outage = FailureTrace([(n, *K80_OUTAGE) for n in K80_NODES])
+    cases = [(e, "csv", mini, load_fault_csv(str(MINI_FAULTS), cluster))
+             for e in ("rounds", "events")]
+    cases += [(e, "k80", mini, outage) for e in ("rounds", "events")]
+    cases.append(("events", "k80 wide", wide, FailureTrace(
+        [(n, 0.0, K80_OUTAGE[1]) for n in K80_NODES])))
+    rows = []
+    for engine, name, jobs, faults in cases:
+        runs = {s: run_sim(engine, s, jobs, cluster, faults)
+                for s in ("cuda", "numpy")}
+        row = {"engine": engine, "faults": name, "jobs": len(jobs),
+               **_summary(runs)}
+        log("[mini] " + json.dumps(row))
+        rows.append(row)
+        phase = f"mini {engine} {name}"
+        _check_pair(phase, runs, k5=name == "k80 wide")
+        cuda = runs["cuda"]
+        if name.startswith("k80") and (2 not in cuda["k4_R"] or (
+                name == "k80 wide" and 2 not in cuda["k5_R"])):
+            raise RuntimeError(f"{phase}: no launch took the view without "
+                               f"K80 (K4 R {cuda['k4_R']}, K5 R "
+                               f"{cuda['k5_R']})")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -1656,6 +1891,8 @@ def main(argv=None) -> int:
     serve_rwkv = phase_serve(args.seed, "rwkv6-7b")
     schedule = phase_schedule()
     sim = phase_simulate()
+    events = phase_events()
+    mini = phase_mini()
     sched_main = next(r for r in schedule
                       if (r["n"], r["topo"]) == SCHED_MAIN)["cuda_launches"]
 
@@ -1677,6 +1914,8 @@ def main(argv=None) -> int:
                     "library_ms")}}
                for name, (replaces, launches) in paths.items()]
     kernels[-1]["us_per_step"] = main_rows["commit_scan"]["us_per_step"]
+    for k in kernels[-2:]:
+        k["event_run_launches"] = events["cuda"]["launches"][k["name"]]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -1685,6 +1924,7 @@ def main(argv=None) -> int:
                                    "prefill_rwkv": prefill_rwkv,
                                    "serve_rwkv": serve_rwkv,
                                    "schedule": schedule, "simulate": sim,
+                                   "events": events, "mini": mini,
                                    "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

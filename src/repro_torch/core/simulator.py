@@ -3,7 +3,8 @@ point of the Hadar decision path.
 
 ``simulate(HadarScheduler(solver="cuda"), jobs, cluster)`` runs the
 round engine of ``repro_torch.sim.engine`` with Hadar's dual subroutine
-on the card (kernels K4 and K5).
+on the card (kernels K4 and K5); ``simulate_events`` is the
+continuous-time engine.  Both take ``faults=``.
 """
 from __future__ import annotations
 
@@ -11,8 +12,11 @@ from typing import List
 
 from repro_torch.core.schedulers import Scheduler
 from repro_torch.core.types import Cluster, Job
-from repro_torch.sim.engine import RESTART_PENALTY, simulate_rounds
-from repro_torch.sim.metrics import RoundRecord, SimResult  # noqa: F401
+from repro_torch.sim.engine import (RESTART_PENALTY,  # noqa: F401
+                                    _alloc_equal, simulate_events,
+                                    simulate_rounds)
+from repro_torch.sim.metrics import (EventSimResult,  # noqa: F401
+                                     RoundRecord, SimResult)
 
 
 def simulate(scheduler: Scheduler, jobs: List[Job], cluster: Cluster,

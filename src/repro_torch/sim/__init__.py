@@ -1,4 +1,43 @@
-"""The port's simulation subsystem: the round-quantized engine
-(``engine.simulate_rounds``) and its records and results (``metrics``).
-The JAX package's event engine, fault model and trace replay are not
-ported yet."""
+"""The port's simulation subsystem (``repro.sim`` without the HadarE
+adapters, which are not ported yet).
+
+Simulated time advances between *scheduling points*; what counts as a
+scheduling point is the only difference between the two engines:
+
+- **round mode** (``engine.simulate_rounds``): the fixed ``round_len``
+  grid — the paper's §IV round-based model.  Steady rounds under a
+  ``stable_when_idle`` scheduler are fast-forwarded in bulk.
+- **event mode** (``engine.simulate_events``, driven over the co-routine
+  ``engine.event_stream``): job arrivals, *predicted completions*, fault
+  events and (for schedulers that rotate allocations every round) a
+  ``round_len`` re-schedule quantum.
+
+Module map: ``events`` (the ``EventQueue``), ``engine`` (both engines),
+``metrics`` (records and results), ``faults`` (``FailureModel``,
+validated ``FailureTrace`` windows, checkpoint rollback and the
+reverse-payoff eviction policy) and ``replay`` (Philly/Helios-style job
+and failure-trace CSVs).
+"""
+from repro_torch.sim.engine import (RESTART_PENALTY, ConsultPoint,
+                                    event_stream, simulate_events,
+                                    simulate_rounds)
+from repro_torch.sim.faults import (CHECKPOINT_INTERVAL, FailureModel,
+                                    FailureTrace, FaultWindow)
+from repro_torch.sim.metrics import (EventSimResult, IntervalRecord,
+                                     RoundRecord, SimResult)
+
+__all__ = [
+    "CHECKPOINT_INTERVAL",
+    "ConsultPoint",
+    "RESTART_PENALTY",
+    "event_stream",
+    "FailureModel",
+    "FailureTrace",
+    "FaultWindow",
+    "simulate_events",
+    "simulate_rounds",
+    "EventSimResult",
+    "IntervalRecord",
+    "RoundRecord",
+    "SimResult",
+]

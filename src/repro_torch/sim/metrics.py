@@ -1,17 +1,17 @@
 """Simulation metrics: per-round / per-interval records and results.
 
 The port's copy of ``repro.sim.metrics``, without the observability and
-sanitizer hooks.  The continuous-time engine (not ported yet) records
-*intervals* — the spans between consecutive events — instead of fixed
-rounds; :class:`IntervalRecord` adds the interval length ``dt`` and
+sanitizer hooks.  The continuous-time engine records *intervals* — the
+spans between consecutive events — instead of fixed rounds;
+:class:`IntervalRecord` adds the interval length ``dt`` and
 :class:`EventSimResult` reweights GRU/CRU by time so sparse traces
 (where intervals have wildly different lengths) are averaged fairly.
 
 :class:`MetricsRecorder` is the incremental recorder used by
-the JAX package's ``simulate_events``: the engine reports each closed
-interval once, with the busy GPU-time and busy nodes accrued over it,
-and the recorder derives GRU/CRU on the fly — no post-hoc pass over
-the trace is needed.
+``simulate_events``: the engine reports each closed interval once, with
+the busy GPU-time and busy nodes accrued over it, and the recorder
+derives GRU/CRU on the fly — no post-hoc pass over the trace is
+needed.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """The port stands alone: no ``jax`` and no ``repro`` import, anywhere in
 ``src/repro_torch``, ``chip_smoke.py``, ``chip_mutants.py`` or
 ``chip_compare.py``, and it
-serves and schedules with both blocked."""
+serves, schedules and simulates under faults with both blocked."""
 import ast
 import os
 import subprocess
@@ -45,7 +45,10 @@ def test_no_jax_or_repro_imports():
             "src/repro_torch/core/hadar.py",
             "src/repro_torch/core/simulator.py",
             "src/repro_torch/sim/metrics.py",
-            "src/repro_torch/sim/engine.py"} <= names
+            "src/repro_torch/sim/engine.py",
+            "src/repro_torch/sim/events.py",
+            "src/repro_torch/sim/faults.py",
+            "src/repro_torch/sim/replay.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in FORBIDDEN]
@@ -82,6 +85,19 @@ assert rounds["numpy"] == rounds["cuda"] and rounds["numpy"]
 res = simulate(HadarScheduler(solver="numpy"), philly_trace(n_jobs=6, seed=1),
                grown_cluster(6))
 print("scheduled", len(rounds["numpy"]), "jobs; simulated", res.avg_jct())
+from repro_torch.core.schedulers import GavelScheduler
+from repro_torch.sim import events, faults, replay
+from repro_torch.sim.engine import simulate_events
+cluster = grown_cluster(8)
+model = faults.FailureModel(seed=3, mtbf_hours=2.0, spot_frac=0.5)
+assert len(model.sample(cluster)) > 0
+for sched in (HadarScheduler(solver="numpy"), GavelScheduler()):
+    ev = simulate_events(sched, philly_trace(n_jobs=8, seed=2), cluster,
+                         faults=model)
+    assert ev.n_events > 0 and ev.evictions > 0, (ev.n_events, ev.evictions)
+print("events", ev.n_events, "evictions", ev.evictions,
+      len(replay.load_trace_csv("examples/traces/philly_mini.csv")),
+      int(events.EventKind.RESCHEDULE))
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 """
@@ -96,3 +112,4 @@ def test_serves_with_jax_and_repro_blocked():
     assert "served llama3.2-1b" in res.stdout
     assert "served rwkv6-7b" in res.stdout
     assert "scheduled" in res.stdout
+    assert "events" in res.stdout
