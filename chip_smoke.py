@@ -96,20 +96,22 @@ exits non-zero.
    launch K4 and K5 (n >= 256) and the numpy round nothing.  The seconds
    per round of both are the sweep that will calibrate ``auto``.
 7. simulate -- ``simulate`` of the 256-job fig5 trace with both solvers,
-   then the same through ``simulate_rounds`` under a seeded
-   ``FailureModel`` (``FAULT_MODEL``): every result field but host time
+   then the 48-job fig5 trace (``FAULT_ROUND_JOBS``) through
+   ``simulate_rounds`` under a seeded ``FailureModel`` (``FAULT_MODEL``),
+   each with both solvers: every result field but host time
    equal (average JCT, makespan, each finish time, evictions, lost
    GPU-seconds, each round record); K4 and K5 launched by the cuda runs
    only; the faulted run's rounds, evictions, average JCT and makespan
    those of the JAX package (``REF_ROUNDS_FAULTED``).
-8. events -- ``simulate_events`` of the same trace under the same model
+8. events -- ``simulate_events`` of the 256-job trace under the same model
    with both solvers: every result field but host time equal; K4 and K5
    launched by the cuda run only; events, consults and evictions those of
    the JAX package, its average JCT and makespan within 1e-9 relative
    (``REF_EVENTS``).  Reports each solver's wall and seconds a consult,
    K4's and K5's launches, K4's job buckets B and the ``PriceState``s
-   built; the cuda run is traced by ``torch.profiler`` for the device
-   time of K4, K5 and all the device's work, and its share of the wall.
+   built; the cuda run is traced by ``torch.profiler`` (device activity
+   only) for the device time of K4, K5 and all the device's work, and
+   its share of that run's wall.
 9. mini -- ``examples/traces/philly_mini.csv`` on ``simulation_cluster()``
    through both engines and both solvers, under its fault CSV and under a
    hand-made trace that downs the five K80 nodes together, and a 48-job
@@ -208,21 +210,26 @@ HORIZON = 7 * 24 * 3600.0
 # the decision-latency sweep of the schedule phase (both solvers)
 SWEEP_SIZES = (64, 256, 1024, 2048)
 SIM_JOBS = 256
+# the faulted round run's trace, cut from SIM_JOBS to keep the smoke's
+# time: grown_cluster(48) is 15 nodes, the run takes 322 rounds, 18 of
+# its consults queue more than 24 jobs (the greedy path, K5)
+FAULT_ROUND_JOBS = 48
 # the failure model of the faulted runs (phases 7 and 8): on
 # grown_cluster(256), 32 nodes, it draws 94 windows over its week, 27 of
-# them spot reclaims
+# them spot reclaims; on grown_cluster(48), 46 windows, 7 spot
 FAULT_MODEL = dict(seed=7, mtbf_hours=72.0, spot_frac=0.2,
                    spot_reclaim_hours=24.0)
-# The JAX package's results for the same runs: its simulate_events and
-# simulate_rounds (repro.sim.engine) with its own
-# HadarScheduler(solver="numpy"), philly_trace(256, seed=1) on the fig5
-# grown cluster and FAULT_MODEL, run once on a CPU.
+# The JAX package's results for the same runs, each with its own
+# HadarScheduler(solver="numpy") and FAULT_MODEL on the fig5 grown
+# cluster (benchmarks/fig5_scalability.grown_cluster), run once on a CPU:
+# repro.sim.engine.simulate_events of philly_trace(SIM_JOBS, seed=1), and
+# simulate_rounds of philly_trace(FAULT_ROUND_JOBS, seed=1).
 REF_EVENTS = {"n_events": 1190, "sched_calls": 929, "evictions": 99,
               "avg_jct_s": 118650.07469017516,
               "makespan_s": 230066.13249397563}
-REF_ROUNDS_FAULTED = {"rounds": 634, "evictions": 94,
-                      "avg_jct_s": 113022.73121100904,
-                      "makespan_s": 228181.08333333334}
+REF_ROUNDS_FAULTED = {"rounds": 322, "evictions": 10,
+                      "avg_jct_s": 44677.16528191138,
+                      "makespan_s": 115652.0}
 REF_REL_TOL = 1e-9
 # phase 9: philly_mini on simulation_cluster(), whose nodes 10-14 are its
 # K80s; the type outage downs them together (R drops from 3 to 2) over
@@ -1623,22 +1630,6 @@ def phase_schedule():
     return rows
 
 
-def _sim_fields(res) -> tuple:
-    """Every field of a simulation result but the host time
-    ``sched_seconds``: each job's finish, progress, restarts, evictions
-    and lost work, each round or interval record, and the totals."""
-    jobs = tuple((j.job_id, j.finish_time, j.done_iters, j.restarts,
-                  j.evictions, j.lost_iters, j.attained_service)
-                 for j in sorted(res.jobs, key=lambda j: j.job_id))
-    recs = tuple(dataclasses.astuple(dataclasses.replace(
-        r, sched_seconds=0.0)) for r in res.rounds)
-    return jobs, recs, (res.total_seconds, res.avg_jct(),
-                        res.gpu_seconds_busy, res.gpu_seconds_avail,
-                        res.gpu_seconds_lost, res.evictions,
-                        getattr(res, "n_events", None),
-                        getattr(res, "sched_calls", None))
-
-
 def _recorded(real, log: list, table: int):
     """A kernel's ``launch`` that also notes each launch's (B, R), the
     shape of its utility table, input ``table``."""
@@ -1679,6 +1670,7 @@ def run_sim(engine: str, solver: str, jobs, cluster, faults=None,
     from repro_torch.kernels import commit_scan as ck
     from repro_torch.kernels import find_alloc as fk
     from repro_torch.sim import engine as eng
+    from repro_torch.sim.metrics import result_fields
     builds = [0]
 
     class Counted(hadar.PriceState):
@@ -1687,8 +1679,7 @@ def run_sim(engine: str, solver: str, jobs, cluster, faults=None,
             super().__init__(*a, **kw)
     k4, k5 = [], []
     jobs = clone_jobs(jobs)
-    prof = (torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                               ProfilerActivity.CUDA])
+    prof = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
             if profile else contextlib.nullcontext())
     with mock.patch.object(hadar, "PriceState", Counted), \
             mock.patch.object(fk, "launch", _recorded(fk.launch, k4, 7)), \
@@ -1704,7 +1695,7 @@ def run_sim(engine: str, solver: str, jobs, cluster, faults=None,
             wall = time.perf_counter() - t0
         launches = read_launches()
     consults = [r.sched_seconds for r in res.rounds if r.sched_seconds > 0]
-    out = {"res": res, "fields": _sim_fields(res), "wall_s": wall,
+    out = {"res": res, "fields": result_fields(res), "wall_s": wall,
            "consults": getattr(res, "sched_calls", len(consults)),
            "sched_s": sum(consults), "launches": launches,
            "price_states": builds[0],
@@ -1763,19 +1754,21 @@ def _summary(runs: dict) -> dict:
 
 def phase_simulate():
     """``simulate`` of the fig5 trace of SIM_JOBS jobs on its grown
-    cluster with ``solver="cuda"`` and ``"numpy"``, then the same through
-    ``simulate_rounds`` under FAULT_MODEL: every result field but host
-    time equal; the cuda runs launch K4 and K5, the numpy runs no kernel;
-    the faulted run's rounds, evictions, average JCT and makespan those
-    of the JAX package (REF_ROUNDS_FAULTED)."""
+    cluster with ``solver="cuda"`` and ``"numpy"``, then the fig5 trace
+    of FAULT_ROUND_JOBS jobs through ``simulate_rounds`` under
+    FAULT_MODEL: every result field but host time equal; the cuda runs
+    launch K4 and K5, the numpy runs no kernel; the faulted run's rounds,
+    evictions, average JCT and makespan those of the JAX package
+    (REF_ROUNDS_FAULTED)."""
     from repro_torch.sim.faults import FailureModel
-    jobs, cluster, _ = fig5_round(SIM_JOBS, "grown")
-    out = {"jobs": SIM_JOBS}
-    for name, faults in (("plain", None),
-                         ("faulted", FailureModel(**FAULT_MODEL))):
+    out = {}
+    for name, n, faults in (("plain", SIM_JOBS, None),
+                            ("faulted", FAULT_ROUND_JOBS,
+                             FailureModel(**FAULT_MODEL))):
+        jobs, cluster, _ = fig5_round(n, "grown")
         runs = {s: run_sim("rounds", s, jobs, cluster, faults)
                 for s in ("cuda", "numpy")}
-        out[name] = _summary(runs)
+        out[name] = {"jobs": n, **_summary(runs)}
         log(f"[simulate] {name} " + json.dumps(out[name]))
         _check_pair(f"simulate {name}", runs)
         if faults is not None:
@@ -1795,9 +1788,8 @@ def phase_events():
     JCT and makespan within REF_REL_TOL (REF_EVENTS).  Reports each
     solver's wall and seconds a consult, K4's and K5's launches, K4's job
     buckets, the PriceStates built, and from ``torch.profiler``'s trace
-    of the cuda run the device time of K4, K5 and all the device's work,
-    and that work's share of the run's wall (the profiler is on during
-    that run)."""
+    of the cuda run (device activity only) the device time of K4, K5 and
+    all the device's work, and that work's share of that run's wall."""
     from repro_torch.sim.faults import FailureModel
     jobs, cluster, _ = fig5_round(SIM_JOBS, "grown")
     model = FailureModel(**FAULT_MODEL)

@@ -11,7 +11,8 @@ spans between consecutive events — instead of fixed rounds;
 ``simulate_events``: the engine reports each closed interval once, with
 the busy GPU-time and busy nodes accrued over it, and the recorder
 derives GRU/CRU on the fly — no post-hoc pass over the trace is
-needed.
+needed.  :func:`result_fields` is the port's own: every field of a
+result but host time, the form in which two runs are held equal.
 """
 from __future__ import annotations
 
@@ -204,3 +205,21 @@ class MetricsRecorder:
                               gpu_seconds_lost=self.lost_gpu_seconds,
                               evictions=self.evictions,
                               n_events=n_events, sched_calls=sched_calls)
+
+
+def result_fields(res) -> tuple:
+    """Every field of a simulation result but the host time
+    ``sched_seconds``: each job's arrival, finish, progress, restarts,
+    evictions, lost work and last allocation, each round or interval
+    record, and the totals.  Two runs that should agree (two solvers, or
+    the port and the JAX package) agree when these are equal."""
+    jobs = tuple((j.job_id, j.arrival, j.finish_time, j.done_iters,
+                  j.restarts, j.evictions, j.lost_iters, j.attained_service,
+                  sorted((j.alloc or {}).items())) for j in res.jobs)
+    recs = tuple(dataclasses.astuple(dataclasses.replace(
+        r, sched_seconds=0.0)) for r in res.rounds)
+    tot = (res.scheduler, res.total_seconds, res.gpu_seconds_busy,
+           res.gpu_seconds_avail, res.gpu_seconds_lost, res.evictions,
+           getattr(res, "n_events", None), getattr(res, "sched_calls", None),
+           res.avg_jct(), res.goodput(), res.gru_overall())
+    return jobs, recs, tot

@@ -8,7 +8,6 @@ without faults, compared in every field but ``sched_seconds`` (host
 time).  Gavel and Tiresias rotate allocations, so their event runs go
 through the re-schedule quantum; YARN-CS is ``stable_when_idle``.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -25,6 +24,7 @@ from repro_torch.core import trace as ttrace
 from repro_torch.core.types import Cluster, Job, Node
 from repro_torch.sim import engine as tengine
 from repro_torch.sim import faults as tfaults
+from repro_torch.sim.metrics import result_fields
 
 NAMES = ["GavelScheduler", "TiresiasScheduler", "YarnCSScheduler"]
 TYPES = ["v100", "p100", "k80", "t4"]
@@ -32,20 +32,6 @@ TYPES = ["v100", "p100", "k80", "t4"]
 K80_OUTAGE = [(n, 20000.0, 90000.0, "fail") for n in range(10, 15)]
 MODEL = dict(seed=5, mtbf_hours=6.0, spot_frac=0.3, spot_reclaim_hours=4.0,
              recovery_dist="uniform", horizon=4 * 86400.0)
-
-
-def _fields(res):
-    """Every field of a result but the host time ``sched_seconds``."""
-    jobs = tuple((j.job_id, j.arrival, j.finish_time, j.done_iters,
-                  j.restarts, j.evictions, j.lost_iters, j.attained_service,
-                  sorted((j.alloc or {}).items())) for j in res.jobs)
-    recs = tuple(dataclasses.astuple(dataclasses.replace(
-        r, sched_seconds=0.0)) for r in res.rounds)
-    tot = (res.scheduler, res.total_seconds, res.gpu_seconds_busy,
-           res.gpu_seconds_avail, res.gpu_seconds_lost, res.evictions,
-           getattr(res, "n_events", None), getattr(res, "sched_calls", None),
-           res.avg_jct(), res.goodput(), res.gru_overall())
-    return jobs, recs, tot
 
 
 def _recording(cls):
@@ -103,7 +89,7 @@ def test_baseline_runs_match_jax_package(name, engine, faults):
     got = getattr(tengine, engine)(tsch, tjobs, tcl,
                                    faults=tf() if tf else None)
     assert tsch.log == jsch.log and len(tsch.log) > 10
-    assert _fields(got) == _fields(want)
+    assert result_fields(got) == result_fields(want)
     assert all(j.finish_time is not None for j in got.jobs)
     assert (got.evictions > 0) == (faults != "none")
     if faults == "k80_outage":
@@ -123,7 +109,7 @@ def test_baseline_runs_on_mixed_pods_match_jax_package(name, seed):
     got = tengine.simulate_events(tsch, tjobs, tcl,
                                   faults=tfaults.FailureModel(**MODEL))
     assert tsch.log == jsch.log
-    assert _fields(got) == _fields(want)
+    assert result_fields(got) == result_fields(want)
 
 
 def _random_state(mods, seed):

@@ -35,6 +35,7 @@ from repro_torch.core.types import Cluster, Job, Node
 from repro_torch.sim import engine as tengine
 from repro_torch.sim import events as tevents
 from repro_torch.sim import faults as tfaults
+from repro_torch.sim.metrics import result_fields
 from repro_torch.sim import replay as treplay
 
 REPO = Path(__file__).resolve().parent.parent
@@ -45,20 +46,6 @@ TYPES = ["v100", "p100", "k80"]
 # four arrivals of philly_mini; and every V100 node while jobs run there
 K80_OUTAGE = [(n, 7200.0, 40000.0, "fail") for n in range(10, 15)]
 V100_OUTAGE = [(n, 1000.0, 20000.0, "fail") for n in range(0, 5)]
-
-
-def _fields(res):
-    """Every field of a result but the host time ``sched_seconds``."""
-    jobs = tuple((j.job_id, j.arrival, j.finish_time, j.done_iters,
-                  j.restarts, j.evictions, j.lost_iters, j.attained_service,
-                  sorted((j.alloc or {}).items())) for j in res.jobs)
-    recs = tuple(dataclasses.astuple(dataclasses.replace(
-        r, sched_seconds=0.0)) for r in res.rounds)
-    tot = (res.scheduler, res.total_seconds, res.gpu_seconds_busy,
-           res.gpu_seconds_avail, res.gpu_seconds_lost, res.evictions,
-           getattr(res, "n_events", None), getattr(res, "sched_calls", None),
-           res.avg_jct(), res.goodput(), res.gru_overall())
-    return jobs, recs, tot
 
 
 def _windows(trace):
@@ -462,7 +449,7 @@ def test_hadar_on_philly_mini_matches_jax_package(engine, faults):
                                     faults=jf)
     sched = _Types(solver="numpy")
     got = getattr(tengine, engine)(sched, tjobs, tcl, faults=tf)
-    assert _fields(got) == _fields(want)
+    assert result_fields(got) == result_fields(want)
     assert all(j.finish_time is not None for j in got.jobs)
     assert (got.evictions > 0) == (faults in ("v100_outage", "model"))
     if faults != "model":                   # (the model's may, too)
@@ -484,7 +471,7 @@ def test_hadar_under_a_failure_model_matches_jax_package(n, seed, engine):
                                     faults=jfaults.FailureModel(**kw))
     got = getattr(tengine, engine)(HadarScheduler(solver="numpy"), tjobs,
                                    tcl, faults=tfaults.FailureModel(**kw))
-    assert _fields(got) == _fields(want)
+    assert result_fields(got) == result_fields(want)
     assert got.evictions > 0
 
 
@@ -497,7 +484,7 @@ def test_hadar_events_without_faults_match_jax_package(n):
     got = tengine.simulate_events(
         HadarScheduler(solver="numpy"), ttrace.philly_trace(n_jobs=n, seed=1),
         tcl, round_len=120.0)
-    assert _fields(got) == _fields(want)
+    assert result_fields(got) == result_fields(want)
     assert got.gpu_seconds_lost == 0.0 and got.goodput() == got.gru_overall()
 
 
@@ -524,7 +511,7 @@ def test_event_engine_rollback_and_never_fit_match_jax_package():
             HadarScheduler(solver="numpy"), jobs(Job, extra),
             Cluster([Node(0, {"v100": 1})]), faults=faults,
             checkpoint_interval=ckpt)
-        assert _fields(got) == _fields(want)
+        assert result_fields(got) == result_fields(want)
     assert got.jobs[1].finish_time is None      # never fits
 
 
@@ -538,7 +525,7 @@ def test_round_engine_fast_forward_stops_at_a_fault_as_jax_package():
                JCluster([JNode(0, {"v100": 1})]))
     got = run(tengine, HadarScheduler(solver="numpy"), Job,
               Cluster([Node(0, {"v100": 1})]))
-    assert _fields(got) == _fields(want)
+    assert result_fields(got) == result_fields(want)
     assert got.evictions == 1 and got.goodput() < got.gru_overall()
 
 
@@ -608,7 +595,7 @@ def test_event_stream_with_a_test_policy_matches_jax_package(faults,
     got = _drive(tengine.event_stream(tjobs, tcl, faults=tf, stable=stable,
                                       name="first-fit"))
     assert got[0] == want[0] and len(got[0]) > 5
-    assert _fields(got[1]) == _fields(want[1])
+    assert result_fields(got[1]) == result_fields(want[1])
     assert [r.sched_seconds for r in got[1].rounds] == \
         [r.sched_seconds for r in want[1].rounds]
 
@@ -637,5 +624,5 @@ def test_batched_hadar_equals_numpy_in_the_event_engine_under_faults(
             res[solver] = tengine.simulate_events(
                 HadarScheduler(solver=solver, device="cpu"), tjobs, tcl,
                 faults=_faults(name)[1])
-        assert _fields(res["cuda"]) == _fields(res["numpy"])
+        assert result_fields(res["cuda"]) == result_fields(res["numpy"])
     assert res["cuda"].avg_jct() > 0 and calls
