@@ -296,6 +296,10 @@ def run_cases(kernel: str, lib: Path) -> list:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
+    # built before the swap: the "hadare" tables come from a run of the
+    # scheduler, which must launch the repository's kernels
+    tables = (sched_tables() if kernel in ("find_alloc", "commit_scan")
+              else None)
     with swapped(kernel, lib):
         if kernel == "flash_attention":
             for case in chip_smoke.kernel_cases():
@@ -313,7 +317,7 @@ def run_cases(kernel: str, lib: Path) -> list:
         else:
             check = (chip_smoke.find_alloc_check if kernel == "find_alloc"
                      else chip_smoke.commit_scan_check)
-            for case, tabs in sched_tables().items():
+            for case, tabs in tables.items():
                 tab = tabs[0] if kernel == "find_alloc" else tabs[1]
                 if tab is None:
                     continue

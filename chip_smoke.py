@@ -8,7 +8,7 @@ drives the port's paths with random weights and traces from ``--seed``:
 llama3.2-1b and rwkv6-7b at full width and depth (flash attention K1, the
 WKV6 scan K2, RMSNorm K3) and the Hadar decision path on the fig5 shape
 (FIND_ALLOC K4, the greedy commit K5), through the round and the event
-engine, with and without faults.  Any failure raises and the script
+engine and HadarE's forked copies, with and without faults.  Any failure raises and the script
 exits non-zero.
 
 1. kernel  -- each kernel against its plain PyTorch version
@@ -54,15 +54,17 @@ exits non-zero.
    pool's partial last chunk; "mixed", a 5-type multi_cluster with mixed
    nodes, jobs that use a subset of the types, a fifth single-node,
    fractional free units and N not a multiple of 32; "queue", 8192 jobs,
-   more than the card holds warps of K4 at once.  Every K4 case runs
+   more than the card holds warps of K4 at once; "hadare", the first
+   greedy consult of phase 10 (720 single-node copies, each parent's 15
+   copies equal but for their ids, bucket 1024).  Every K4 case runs
    twice and must be bitwise deterministic; the log counts the walks past
    the first chunk and into a partial last one.  K5 also
    runs on the n=256 grown tables with a fractional carry (0.5 added to,
    and taken from, every third key's free: ``frac_tables``) and on two
    seeded tables with pools in random order (``random_tables``: walks that
    reach a partial last chunk or go 9 chunks deep; one with every window
-   cut at the last unit); every K5 case
-   runs twice and must be bitwise deterministic; its row gives the
+   cut at the last unit) and on phase 10's first greedy consult
+   ("hadare"); every K5 case runs twice and must be bitwise deterministic; its row gives the
    microseconds a step.  First the running NumPy is checked to sum float64
    in the order both replicate.
 2. prefill -- llama3.2-1b ``forward`` on 4 x 1024 tokens in bf16,
@@ -118,6 +120,17 @@ exits non-zero.
    fig5 trace through the event engine with the K80s down from t=0: each
    cuda run equal to its numpy run and launching K4; under the outage K4,
    and on the 48-job trace K5, took tables with R = 2.
+10. hadare -- HadarE (``repro_torch.sim.adapters.simulate_hadare``: every
+   parent forked into one single-node copy per node) on the 48-job fig5
+   trace (``HADARE_JOBS``, 15 nodes, queues of up to 720 copies) under
+   ``FAULT_MODEL``, with both solvers: every result field but host time
+   equal, each consult's decision keys in order equal before and after
+   sibling dedupe, K4 and K5 launched by the cuda run only, the rounds
+   and evictions those of the JAX package, its average JCT and makespan
+   within 1e-9 relative (``REF_HADARE``); the cuda run traced as in 8.
+   Then every mix on the paper's ``aws_cluster()`` and
+   ``testbed_cluster()`` at 90 s a round, both solvers: equal results
+   and keys, K4 launched by each cuda run.
 
 Full-depth agreement of the two model paths is printed, not gated: the
 random init makes a deep stack chaotic.  It prints a ``{"kernels":
@@ -127,7 +140,9 @@ random init makes a deep stack chaotic.  It prints a ``{"kernels":
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -199,12 +214,13 @@ SCHED_MAIN = (2048, "grown")
 # pool orders over n_nodes = 80 (L = 1012, walks into a partial last
 # chunk) and 170 (L = 2176, walks of up to 9 chunks) node rows
 # (``random_tables``); the first of those with every window cut at the last
-# unit ("cut")
+# unit ("cut"); the first greedy consult of phase hadare ("hadare",
+# ``hadare_tables``: its HADARE_JOBS parents' single-node copies)
 EXTRA_K5 = (("frac", 0.5), ("frac", -0.5), ("random", 80), ("random", 170),
-            ("cut", 80))
+            ("cut", 80), ("hadare", 48))
 # K4's further cases (``k4_tables``): (kind, jobs)
 EXTRA_K4 = (("busy", 256), ("busy", 2048), ("wide", 200), ("mixed", 400),
-            ("queue", 8192))
+            ("queue", 8192), ("hadare", 48))
 # the planning horizon of the fig5 round's PriceState (one week)
 HORIZON = 7 * 24 * 3600.0
 # the decision-latency sweep of the schedule phase (both solvers)
@@ -214,7 +230,7 @@ SIM_JOBS = 256
 # time: grown_cluster(48) is 15 nodes, the run takes 322 rounds, 18 of
 # its consults queue more than 24 jobs (the greedy path, K5)
 FAULT_ROUND_JOBS = 48
-# the failure model of the faulted runs (phases 7 and 8): on
+# the failure model of the faulted runs (phases 7, 8 and 10): on
 # grown_cluster(256), 32 nodes, it draws 94 windows over its week, 27 of
 # them spot reclaims; on grown_cluster(48), 46 windows, 7 spot
 FAULT_MODEL = dict(seed=7, mtbf_hours=72.0, spot_frac=0.2,
@@ -240,6 +256,21 @@ MINI_FAULTS = ROOT / "examples" / "traces" / "philly_mini_faults.csv"
 K80_NODES = range(10, 15)
 K80_OUTAGE = (7200.0, 40000.0)
 OUTAGE_JOBS = 48
+# phase 10: HadarE on the fig5 trace of HADARE_JOBS parents on
+# grown_cluster(48) (15 nodes, so 15 single-node copies a parent and
+# queues of up to 720 copies, K4's bucket 1024) under FAULT_MODEL, and on
+# the paper's physical clusters (aws_cluster, testbed_cluster) for every
+# mix at HADARE_ROUND seconds a round
+HADARE_JOBS = 48
+HADARE_ROUND = 90.0
+# The JAX package's result for the same run: repro.sim.adapters.
+# simulate_hadare of philly_trace(HADARE_JOBS, seed=1) on the fig5 grown
+# cluster with its own HadarScheduler(solver="numpy") passed as
+# scheduler= and FAULT_MODEL, run once on a CPU (37 of the 48 parents
+# finish: the other 11 gangs exceed every node, and copies are
+# single-node)
+REF_HADARE = {"rounds": 170, "evictions": 3,
+              "avg_jct_s": 30934.402411765943, "makespan_s": 61200.0}
 # timed forward calls per prefill path (the median is reported)
 FORWARD_REPS = 5
 # H100 SXM float64 peak without tensor cores (NVIDIA data sheet)
@@ -1060,6 +1091,8 @@ def extra_tables(kind: str, arg) -> dict:
     (free 1.5 over one unit, or 0.5 over none once a unit is taken)."""
     if kind == "frac":
         return frac_tables(arg)
+    if kind == "hadare":
+        return hadare_tables(arg)[1]
     tab = random_tables(0, arg)
     if kind == "cut":
         tab["free"] = tab["free"] + 0.5
@@ -1153,13 +1186,16 @@ def k4_tables(kind: str, n: int, seed: int = 0) -> dict:
       job's block has just left.
 
     The taken units are drawn from ``seed + 1``, so the state is the same
-    whatever ``n``."""
+    whatever ``n``.  "hadare": the tables of the first greedy consult of
+    phase hadare (``hadare_tables``)."""
     import numpy as np
     from repro_torch.core import batch_solver as bs
     from repro_torch.core.pricing import PriceState
     from repro_torch.core.trace import grown_cluster, multi_cluster, \
         philly_trace
     from repro_torch.core.utility import effective_throughput as util
+    if kind == "hadare":
+        return hadare_tables(n)[0]
     rs = np.random.RandomState(seed)
     if kind in ("mixed", "queue"):
         cluster = (multi_cluster(n_pods=5, nodes_per_pod=13, gpus_per_node=4,
@@ -1194,6 +1230,48 @@ def k4_tables(kind: str, n: int, seed: int = 0) -> dict:
         avail[keys[avail[keys] >= 1.0]] -= 0.5
     return bs.pricing_tables(queue, avail, gamma, ps, now, util,
                              bs.bucket_size(len(queue)))
+
+
+@functools.lru_cache(maxsize=1)
+def hadare_tables(n: int, device=None) -> tuple:
+    """The host tables of K4's and K5's first launches in phase hadare's
+    run (``simulate_hadare`` of the fig5 trace of ``n`` parents on its
+    grown cluster under FAULT_MODEL, ``HadarScheduler(solver="cuda")``):
+    its first consult, every parent's single-node copies queued at t=0, a
+    parent's copies in equal rows.  The run stops once both are built.
+    ``device``: the scheduler's (the card by default; the CPU tests pass
+    "cpu", where the kernels' plain versions run)."""
+    from repro_torch.core import batch_solver as bs
+    from repro_torch.core.hadar import HadarScheduler
+    from repro_torch.sim.adapters import simulate_hadare
+    from repro_torch.sim.faults import FailureModel
+    got = {}
+
+    class Built(Exception):
+        pass
+
+    def keep(name, real):
+        def build(*a, **kw):
+            tab = real(*a, **kw)
+            # a copy: the tables alias the free vector the commit updates
+            got.setdefault(name, copy.deepcopy(tab))
+            if len(got) == 2:
+                raise Built
+            return tab
+        return build
+    jobs, cluster, _ = fig5_round(n, "grown")
+    with mock.patch.object(bs, "pricing_tables",
+                           keep("k4", bs.pricing_tables)), \
+            mock.patch.object(bs, "scan_tables", keep("k5", bs.scan_tables)):
+        try:
+            simulate_hadare(jobs, cluster, scheduler=HadarScheduler(
+                solver="cuda", device=device),
+                faults=FailureModel(**FAULT_MODEL))
+        except Built:
+            pass
+    if len(got) < 2:
+        raise RuntimeError(f"hadare tables: the run built only {list(got)}")
+    return got["k4"], got["k5"]
 
 
 def k4_case(kind: str, n: int) -> dict:
@@ -1654,21 +1732,26 @@ def _device_ms(prof) -> dict:
 
 
 def run_sim(engine: str, solver: str, jobs, cluster, faults=None,
-            profile: bool = False) -> dict:
-    """One run of ``simulate_rounds`` or ``simulate_events`` with
+            profile: bool = False, **kw) -> dict:
+    """One run of ``simulate_rounds``, ``simulate_events`` or HadarE's
+    ``simulate_hadare`` (``engine`` "rounds", "events", "hadare") with
     ``HadarScheduler(solver)``, the launch counts set to 0 just before it
-    and read just after.  Also notes each K4 and K5 launch's job bucket B
-    and type count R, and how many ``PriceState``s the scheduler built.
-    ``profile``: trace the run with ``torch.profiler`` and report the
-    device time of K4, K5 and all the device's work (``_device_ms``)."""
+    and read just after; ``kw`` goes to the engine.  Also notes each K4
+    and K5 launch's job bucket B and type count R, and how many
+    ``PriceState``s the scheduler built; for "hadare", each consult's
+    decision keys in order as the scheduler returned them and after
+    sibling dedupe (``keys``), and the longest queue of copies.  ``profile``: trace the run with ``torch.profiler`` and report
+    the device time of K4, K5 and all the device's work
+    (``_device_ms``)."""
     import contextlib
     from collections import Counter
     import torch
     from torch.profiler import ProfilerActivity
-    from repro_torch.core import hadar
+    from repro_torch.core import hadar, hadare
     from repro_torch.core.types import clone_jobs
     from repro_torch.kernels import commit_scan as ck
     from repro_torch.kernels import find_alloc as fk
+    from repro_torch.sim import adapters
     from repro_torch.sim import engine as eng
     from repro_torch.sim.metrics import result_fields
     builds = [0]
@@ -1679,18 +1762,43 @@ def run_sim(engine: str, solver: str, jobs, cluster, faults=None,
             super().__init__(*a, **kw)
     k4, k5 = [], []
     jobs = clone_jobs(jobs)
+    sched = hadar.HadarScheduler(solver=solver)
+    raw, kept, queue = [], [], [0]
+    if engine == "hadare":
+        real_schedule, real_dedupe = sched.schedule, hadare._dedupe_siblings
+
+        def schedule(now, round_len, live, view):
+            out = real_schedule(now, round_len, live, view)
+            raw.append(list(out))
+            queue[0] = max(queue[0], len(live))
+            return out
+
+        def dedupe(*a):
+            out = real_dedupe(*a)
+            kept.append(list(out))
+            return out
+        sched.schedule = schedule
+        dedupe_patch = mock.patch.object(hadare, "_dedupe_siblings", dedupe)
+
+        def go():
+            return adapters.simulate_hadare(jobs, cluster, scheduler=sched,
+                                            faults=faults, **kw)
+    else:
+        dedupe_patch = contextlib.nullcontext()
+
+        def go():
+            return getattr(eng, f"simulate_{engine}")(
+                sched, jobs, cluster, faults=faults, **kw)
     prof = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
             if profile else contextlib.nullcontext())
-    with mock.patch.object(hadar, "PriceState", Counted), \
+    with mock.patch.object(hadar, "PriceState", Counted), dedupe_patch, \
             mock.patch.object(fk, "launch", _recorded(fk.launch, k4, 7)), \
             mock.patch.object(ck, "launch", _recorded(ck.launch, k5, 8)):
         torch.cuda.synchronize()
         zero_launches()
         with prof:
             t0 = time.perf_counter()
-            res = getattr(eng, f"simulate_{engine}")(
-                hadar.HadarScheduler(solver=solver), jobs, cluster,
-                faults=faults)
+            res = go()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = read_launches()
@@ -1701,10 +1809,16 @@ def run_sim(engine: str, solver: str, jobs, cluster, faults=None,
            "price_states": builds[0],
            "k4_B": dict(sorted(Counter(b for b, _ in k4).items())),
            "k4_R": sorted({r for _, r in k4}),
+           "k5_B": dict(sorted(Counter(b for b, _ in k5).items())),
            "k5_R": sorted({r for _, r in k5})}
+    if engine == "hadare":
+        out.update(keys=(raw, kept), largest_queue=queue[0])
     if profile:
         out.update(_device_ms(prof))
         out["device_share"] = out["device_ms"] / 1e3 / wall
+        steps = sum(b for b, _ in k5)   # K5 takes a step a bucket row
+        if steps:
+            out["k5_us_per_step"] = out["k5_ms"] * 1e3 / steps
     return out
 
 
@@ -1741,7 +1855,7 @@ def _summary(runs: dict) -> dict:
     for solver, run in runs.items():
         res = run["res"]
         out[solver] = {k: v for k, v in run.items()
-                       if k not in ("res", "fields")}
+                       if k not in ("res", "fields", "keys")}
         out[solver].update(avg_jct_s=res.avg_jct(),
                            makespan_s=res.total_seconds,
                            evictions=res.evictions,
@@ -1847,6 +1961,72 @@ def phase_mini():
     return rows
 
 
+def _check_keys(phase: str, runs: dict):
+    """Each consult's decision keys, in order, before and after sibling
+    dedupe, equal between the cuda and numpy runs."""
+    raw, kept = runs["cuda"]["keys"]
+    if (raw, kept) != runs["numpy"]["keys"]:
+        bad = next((i for i, (a, b) in enumerate(zip(
+            raw, runs["numpy"]["keys"][0])) if a != b), None)
+        raise RuntimeError(f"{phase}: the cuda and numpy solvers' decision "
+                           f"keys differ (first at consult {bad})")
+    if not raw or len(raw) != len(kept):
+        raise RuntimeError(f"{phase}: {len(raw)} consults, {len(kept)} "
+                           f"dedupes")
+
+
+def phase_hadare():
+    """HadarE: ``simulate_hadare`` of the fig5 trace of HADARE_JOBS parents
+    on its grown cluster under FAULT_MODEL, with ``solver="cuda"`` and
+    ``"numpy"``: every result field but host time equal (average JCT,
+    makespan, each parent's finish time, evictions, lost GPU-seconds,
+    each round record), each consult's decision keys in order before and
+    after sibling dedupe equal, K4 and K5 launched by the cuda run only;
+    the rounds and evictions those of the JAX package, its average JCT and
+    makespan within REF_REL_TOL (REF_HADARE).  Then every mix on the
+    paper's physical clusters (``aws_cluster``, ``testbed_cluster``) at
+    HADARE_ROUND, both solvers: equal, and each cuda run launches K4.
+    Reports each solver's wall and seconds a consult, K4's and K5's
+    launches and buckets, the PriceStates built, and from
+    ``torch.profiler``'s trace of the cuda run (device activity only) the
+    device time of K4, K5 and all the device's work, and its share of the
+    wall."""
+    from repro_torch.core.trace import MIXES, aws_cluster, mix_jobs, \
+        testbed_cluster
+    from repro_torch.sim.faults import FailureModel
+    jobs, cluster, _ = fig5_round(HADARE_JOBS, "grown")
+    runs = {s: run_sim("hadare", s, jobs, cluster,
+                       FailureModel(**FAULT_MODEL), profile=s == "cuda")
+            for s in ("cuda", "numpy")}
+    res = runs["numpy"]["res"]
+    out = {"jobs": HADARE_JOBS, "nodes": len(cluster.nodes),
+           "finished": sum(p.finish_time is not None for p in res.jobs),
+           **_summary(runs)}
+    log("[hadare] " + json.dumps(out))
+    _check_pair("hadare", runs)
+    _check_keys("hadare", runs)
+    _check_reference("hadare", res, REF_HADARE, {
+        "rounds": len(res.rounds), "evictions": res.evictions})
+    out["physical"] = []
+    for make in (aws_cluster, testbed_cluster):
+        cl = make()
+        for mix in MIXES:
+            runs = {s: run_sim("hadare", s, mix_jobs(mix, cl), cl,
+                               round_len=HADARE_ROUND)
+                    for s in ("cuda", "numpy")}
+            row = {"cluster": make.__name__, "mix": mix,
+                   "rounds": len(runs["numpy"]["res"].rounds),
+                   "makespan_s": runs["numpy"]["res"].total_seconds,
+                   **{f"{s}_{k}": runs[s][k] for s in runs
+                      for k in ("wall_s", "consults", "launches")}}
+            log("[hadare] " + json.dumps(row))
+            phase = f"hadare {make.__name__} {mix}"
+            _check_pair(phase, runs, k5=False)
+            _check_keys(phase, runs)
+            out["physical"].append(row)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1885,6 +2065,7 @@ def main(argv=None) -> int:
     sim = phase_simulate()
     events = phase_events()
     mini = phase_mini()
+    hadare = phase_hadare()
     sched_main = next(r for r in schedule
                       if (r["n"], r["topo"]) == SCHED_MAIN)["cuda_launches"]
 
@@ -1908,6 +2089,7 @@ def main(argv=None) -> int:
     kernels[-1]["us_per_step"] = main_rows["commit_scan"]["us_per_step"]
     for k in kernels[-2:]:
         k["event_run_launches"] = events["cuda"]["launches"][k["name"]]
+        k["hadare_run_launches"] = hadare["cuda"]["launches"][k["name"]]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -1917,6 +2099,7 @@ def main(argv=None) -> int:
                                    "serve_rwkv": serve_rwkv,
                                    "schedule": schedule, "simulate": sim,
                                    "events": events, "mini": mini,
+                                   "hadare": hadare,
                                    "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,4 @@
-"""The port's simulation subsystem (``repro.sim`` without the HadarE
-adapters, which are not ported yet).
+"""The port's simulation subsystem (the port's copy of ``repro.sim``).
 
 Simulated time advances between *scheduling points*; what counts as a
 scheduling point is the only difference between the two engines:
@@ -13,10 +12,14 @@ scheduling point is the only difference between the two engines:
   ``round_len`` re-schedule quantum.
 
 Module map: ``events`` (the ``EventQueue``), ``engine`` (both engines),
-``metrics`` (records and results), ``faults`` (``FailureModel``,
-validated ``FailureTrace`` windows, checkpoint rollback and the
-reverse-payoff eviction policy) and ``replay`` (Philly/Helios-style job
-and failure-trace CSVs).
+``metrics`` (records and results), ``adapters`` (the
+``CountingScheduler`` wrapper, the ``run(mode=...)`` dispatcher, the
+vectorized HadarE backend — tracker aggregation and quota re-splitting
+as (parent × copy) NumPy matrix ops, with steady-round fast-forward —
+and ``simulate_pods``), ``faults`` (``FailureModel``, validated
+``FailureTrace`` windows, checkpoint rollback and the reverse-payoff
+eviction policy) and ``replay`` (Philly/Helios-style job and
+failure-trace CSVs).
 """
 from repro_torch.sim.engine import (RESTART_PENALTY, ConsultPoint,
                                     event_stream, simulate_events,

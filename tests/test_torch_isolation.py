@@ -1,7 +1,8 @@
 """The port stands alone: no ``jax`` and no ``repro`` import, anywhere in
 ``src/repro_torch``, ``chip_smoke.py``, ``chip_mutants.py`` or
 ``chip_compare.py``, and it
-serves, schedules and simulates under faults with both blocked."""
+serves, schedules and simulates under faults, HadarE included, with both
+blocked."""
 import ast
 import os
 import subprocess
@@ -44,11 +45,13 @@ def test_no_jax_or_repro_imports():
             "src/repro_torch/core/batch_solver.py",
             "src/repro_torch/core/hadar.py",
             "src/repro_torch/core/simulator.py",
+            "src/repro_torch/core/hadare.py",
             "src/repro_torch/sim/metrics.py",
             "src/repro_torch/sim/engine.py",
             "src/repro_torch/sim/events.py",
             "src/repro_torch/sim/faults.py",
-            "src/repro_torch/sim/replay.py"} <= names
+            "src/repro_torch/sim/replay.py",
+            "src/repro_torch/sim/adapters.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in FORBIDDEN]
@@ -98,6 +101,19 @@ for sched in (HadarScheduler(solver="numpy"), GavelScheduler()):
 print("events", ev.n_events, "evictions", ev.evictions,
       len(replay.load_trace_csv("examples/traces/philly_mini.csv")),
       int(events.EventKind.RESCHEDULE))
+from repro_torch.core.hadare import simulate_hadare
+from repro_torch.core.trace import mix_jobs, testbed_cluster
+from repro_torch.sim import adapters
+cluster = testbed_cluster()
+outage = faults.FailureTrace([(0, 100.0, 400.0), (1, 100.0, 400.0)])
+he = simulate_hadare(mix_jobs("M-4", cluster), cluster, round_len=90.0,
+                     scheduler=HadarScheduler(solver="numpy"))
+hf = adapters.simulate_hadare(mix_jobs("M-4", cluster), cluster,
+                              round_len=90.0, faults=outage,
+                              scheduler=HadarScheduler(solver="numpy"))
+assert all(p.finish_time is not None for p in he.jobs + hf.jobs)
+assert hf.evictions > 0, hf.evictions
+print("hadare", he.total_seconds, hf.total_seconds, hf.evictions)
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 """
@@ -113,3 +129,4 @@ def test_serves_with_jax_and_repro_blocked():
     assert "served rwkv6-7b" in res.stdout
     assert "scheduled" in res.stdout
     assert "events" in res.stdout
+    assert "hadare" in res.stdout

@@ -350,6 +350,32 @@ def test_smoke_k4_tables(jax_kernels, kind, n):
         assert np.array_equal(w.astype(g.numpy().dtype), g.numpy())
 
 
+@pytest.mark.parametrize("n", [8, 16])
+def test_smoke_hadare_tables(jax_kernels, n):
+    """``chip_smoke.hadare_tables``: the first greedy consult of the smoke's
+    HadarE run (here with the kernels' plain versions) queues every
+    parent's copies, all single-node, a parent's copies in equal rows (the
+    queue is in job-id order, so copy i of every parent comes before copy
+    i + 1 of any); the plain K4 and K5 agree with the JAX package's
+    kernels bitwise on them."""
+    from repro_torch.core.trace import grown_cluster
+    k4, k5 = _smoke().hadare_tables(n, device="cpu")
+    C = len(grown_cluster(n).nodes)
+    J = n * C
+    assert len(k4["W"]) >= J and (k4["W"][:J] > 0).all()
+    assert not k4["W"][J:].any() and k4["single"][:J].all()
+    for key in ("W", "Kj", "rank", "u_tab", "s_rank", "s_price", "s_key"):
+        rows = np.asarray(k4[key][:J]).reshape(C, n, -1)
+        assert (rows == rows[:1]).all(), key
+    assert k5["single"][:int((k5["W"] > 0).sum())].all()
+    want = _jax_find_alloc(k4)
+    got = ref.find_alloc_ref(*(_t(k4[k]) for k in tbs.FIND_ALLOC_ARGS),
+                             k4["n_nodes"], COMM_COST_FRAC, k4["wmax"])
+    for w, g in zip(want, got):
+        assert np.array_equal(w.astype(g.numpy().dtype), g.numpy())
+    _agrees_with_jax(k5)
+
+
 @pytest.mark.parametrize("delta", [0.5, -0.5])
 def test_smoke_frac_tables(jax_kernels, delta):
     """``chip_smoke.frac_tables``: the fig5 K5 tables with ``delta`` on
