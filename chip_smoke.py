@@ -8,8 +8,9 @@ drives the port's paths with random weights and traces from ``--seed``:
 llama3.2-1b and rwkv6-7b at full width and depth (flash attention K1, the
 WKV6 scan K2, RMSNorm K3) and the Hadar decision path on the fig5 shape
 (FIND_ALLOC K4, the greedy commit K5), through the round and the event
-engine and HadarE's forked copies, with and without faults.  Any failure raises and the script
-exits non-zero.
+engine, HadarE's forked copies and the scheduling env, with and without
+faults, and the policy-comparison table under the runtime sanitizer.  Any
+failure raises and the script exits non-zero.
 
 1. kernel  -- each kernel against its plain PyTorch version
    (``kernels/ref.py``) on the card, then timed on the card alone
@@ -131,6 +132,27 @@ exits non-zero.
    Then every mix on the paper's ``aws_cluster()`` and
    ``testbed_cluster()`` at 90 s a round, both solvers: equal results
    and keys, K4 launched by each cuda run.
+11. env -- (a) ``repro_torch.env.run_policy`` of
+   ``HadarScheduler(solver="cuda")`` through ``ClusterSchedulingEnv`` on
+   phase 8's 256-job trace, cluster and failure model (reward neg_jct,
+   price observations on), traced as in 8: the result equal to phase 8's
+   cuda ``simulate_events`` result in every field but host time, K4 and
+   K5 launched, every step's observation consistent (queue plus running
+   rows the active jobs, ``0 <= free <= capacity``, the price finite and
+   positive on up nodes and ``+inf`` on down ones), the rewards summing
+   to -sum(JCT)/3600 within 1e-9 relative where every job finishes.
+   Reports the wall, seconds a step and the host time spent building
+   observations.  (b) ``repro_torch.env.compare`` of every default
+   policy on ``philly_trace(COMPARE_JOBS, seed=1)`` and
+   ``simulation_cluster()`` under ``FAULT_MODEL``, event mode,
+   ``solver="cuda"``, with ``REPRO_SANITIZE=1`` (PriceState,
+   ``dp_allocation``, K4's candidates and K5's carry checked as well as
+   the engines): a valid table, no invariant violated, each row that of
+   the JAX package (``REF_COMPARE``; floats within 1e-9 relative),
+   Hadar's TTD below every blind policy's, K4 and K5 launched by the
+   Hadar and HadarE runs and nothing by the others; then the Hadar and
+   HadarE rows once more without the sanitizer, equal.  Each policy's
+   wall is reported.
 
 Full-depth agreement of the two model paths is printed, not gated: the
 random init makes a deep stack chaotic.  It prints a ``{"kernels":
@@ -271,6 +293,67 @@ HADARE_ROUND = 90.0
 # single-node)
 REF_HADARE = {"rounds": 170, "evictions": 3,
               "avg_jct_s": 30934.402411765943, "makespan_s": 61200.0}
+# phase 11: the policy-comparison table of COMPARE_JOBS fig5 jobs on
+# simulation_cluster() under FAULT_MODEL, event mode, with the sanitizer
+# on.  The JAX package's table for the same call with solver="numpy"
+# (repro.env.compare.compare of philly_trace(COMPARE_JOBS, seed=1) and
+# DEFAULT_POLICIES), run once on a CPU: its rows, in policy order.
+COMPARE_JOBS = 48
+REF_COMPARE = [
+    {"policy": "hadar", "mode": "event", "ttd_hours": 31.33439450046641,
+     "avg_jct_s": 44535.02724507419, "gru": 0.8325218729451063,
+     "cru": 0.8690995337666532, "gru_overall": 0.8328709377450852,
+     "goodput": 0.8312107169225766, "evictions": 10, "restarts": 329,
+     "completed": 48, "n_jobs": 48},
+    {"policy": "gavel", "mode": "event", "ttd_hours": 32.890713028282725,
+     "avg_jct_s": 53178.03463270378, "gru": 0.780267005996265,
+     "cru": 0.7936351967090487, "gru_overall": 0.7812086217888186,
+     "goodput": 0.7798438746151495, "evictions": 4, "restarts": 1671,
+     "completed": 48, "n_jobs": 48},
+    {"policy": "hadare", "mode": "round", "ttd_hours": 17.0,
+     "avg_jct_s": 30933.125285635764, "gru": 0.9297806005118097,
+     "cru": 1.0, "gru_overall": 0.9298554003333223,
+     "goodput": 0.9298444813955165, "evictions": 3, "restarts": 52,
+     "completed": 37, "n_jobs": 48},
+    {"policy": "fcfs", "mode": "event", "ttd_hours": 95.06879326248823,
+     "avg_jct_s": 75175.64184867572, "gru": 0.46185312321375493,
+     "cru": 0.4891122222571118, "gru_overall": 0.46190278081713176,
+     "goodput": 0.4609615571139368, "evictions": 14, "restarts": 0,
+     "completed": 48, "n_jobs": 48},
+    {"policy": "sjf", "mode": "event", "ttd_hours": 58.09766448258085,
+     "avg_jct_s": 53120.98315797744, "gru": 0.7564870038400082,
+     "cru": 0.8110692374385439, "gru_overall": 0.7565330617846608,
+     "goodput": 0.7531494973470214, "evictions": 17, "restarts": 0,
+     "completed": 48, "n_jobs": 48},
+    {"policy": "sjf_pred", "mode": "event", "ttd_hours": 50.12249956074752,
+     "avg_jct_s": 50303.03537863101, "gru": 0.6872082152214983,
+     "cru": 0.7343906816316662, "gru_overall": 0.6872470156380419,
+     "goodput": 0.6845467101299406, "evictions": 11, "restarts": 0,
+     "completed": 48, "n_jobs": 48},
+    {"policy": "srtf", "mode": "event", "ttd_hours": 96.82898263097597,
+     "avg_jct_s": 55970.02503911071, "gru": 0.39656838210154605,
+     "cru": 0.45546085118552704, "gru_overall": 0.3967033262704648,
+     "goodput": 0.3954462257677552, "evictions": 11, "restarts": 8,
+     "completed": 48, "n_jobs": 48},
+    {"policy": "maxmin", "mode": "event", "ttd_hours": 55.21132119032024,
+     "avg_jct_s": 55591.31864396855, "gru": 0.5411118486115459,
+     "cru": 0.5679466348031799, "gru_overall": 0.5414190429595224,
+     "goodput": 0.5407692948364975, "evictions": 9, "restarts": 527,
+     "completed": 48, "n_jobs": 48},
+    {"policy": "tiresias", "mode": "event", "ttd_hours": 31.16832958416871,
+     "avg_jct_s": 50311.13989478158, "gru": 0.8656209814326282,
+     "cru": 0.8969116561913621, "gru_overall": 0.8657809729955278,
+     "goodput": 0.8649374318225936, "evictions": 5, "restarts": 1058,
+     "completed": 48, "n_jobs": 48},
+    {"policy": "yarn-cs", "mode": "event", "ttd_hours": 50.56990740740741,
+     "avg_jct_s": 43375.037383050694, "gru": 0.6054670427784544,
+     "cru": 0.6172713642888117, "gru_overall": 0.6056058543805413,
+     "goodput": 0.6049134171224063, "evictions": 4, "restarts": 0,
+     "completed": 48, "n_jobs": 48}]
+# the policies whose runs in that table reach the kernels: Hadar's and
+# HadarE's consults launch K4, and each takes the greedy commit on a
+# queue longer than max_exact_dp (24) where a wave stalls (K5)
+COMPARE_KERNEL_POLICIES = ("hadar", "hadare")
 # timed forward calls per prefill path (the median is reported)
 FORWARD_REPS = 5
 # H100 SXM float64 peak without tensor cores (NVIDIA data sheet)
@@ -1903,7 +1986,9 @@ def phase_events():
     solver's wall and seconds a consult, K4's and K5's launches, K4's job
     buckets, the PriceStates built, and from ``torch.profiler``'s trace
     of the cuda run (device activity only) the device time of K4, K5 and
-    all the device's work, and that work's share of that run's wall."""
+    all the device's work, and that work's share of that run's wall.
+    Returns that summary and the cuda run's result fields, which phase
+    env's episode must reproduce."""
     from repro_torch.sim.faults import FailureModel
     jobs, cluster, _ = fig5_round(SIM_JOBS, "grown")
     model = FailureModel(**FAULT_MODEL)
@@ -1920,7 +2005,7 @@ def phase_events():
     _check_reference("events", res, REF_EVENTS, {
         "n_events": res.n_events, "sched_calls": res.sched_calls,
         "evictions": res.evictions})
-    return out
+    return out, runs["cuda"]["fields"]
 
 
 def phase_mini():
@@ -2027,6 +2112,231 @@ def phase_hadare():
     return out
 
 
+def _sync(device):
+    """``torch.cuda.synchronize`` where ``device`` (None: the card) is the
+    card, else a no-op: the env phase's helpers also run on the CPU."""
+    import torch
+    if device is None or torch.device(device).type == "cuda":
+        return torch.cuda.synchronize
+    return lambda: None
+
+
+def check_obs(obs, cp, env):
+    """One env observation against the engine's state at consult ``cp``:
+    queue rows plus running rows are the active jobs, the queue is the
+    engine's own count, ``0 <= free <= capacity`` on every key, and the
+    price is finite and positive on up nodes and ``+inf`` on down ones."""
+    import numpy as np
+    active = {j.job_id for j in env._jobs
+              if not j.is_done() and j.arrival <= cp.t}
+    rows = set(obs["queue_ids"].tolist()) | set(obs["running_ids"].tolist())
+    if (len(obs["queue_ids"]) + len(obs["running_ids"]) != len(active)
+            or rows != active):
+        raise RuntimeError(f"env t={cp.t}: {len(obs['queue_ids'])} queued "
+                           f"+ {len(obs['running_ids'])} running rows, "
+                           f"{len(active)} active jobs")
+    if len(obs["queue_ids"]) != cp.queue_len:
+        raise RuntimeError(f"env t={cp.t}: {len(obs['queue_ids'])} queued "
+                           f"rows, the engine counts {cp.queue_len}")
+    if not ((obs["free"] >= 0.0).all()
+            and (obs["free"] <= obs["capacity"]).all()):
+        raise RuntimeError(f"env t={cp.t}: free outside [0, capacity]")
+    down = np.isin(env._node_of_key, sorted(cp.down))
+    price = obs["price"]
+    if not ((np.isfinite(price[~down]) & (price[~down] > 0.0)).all()
+            and np.isposinf(price[down]).all()):
+        raise RuntimeError(f"env t={cp.t}: price not finite and positive "
+                           f"on up nodes and +inf on down nodes")
+
+
+def check_rewards(res, rewards):
+    """Where every job finished, the episode's neg_jct rewards sum to
+    -sum(JCT)/3600 within REF_REL_TOL; returns whether that applied."""
+    if any(j.finish_time is None for j in res.jobs):
+        return False
+    want = -sum(j.finish_time - j.arrival for j in res.jobs) / 3600.0
+    if abs(sum(rewards) - want) > REF_REL_TOL * abs(want):
+        raise RuntimeError(f"env: neg_jct rewards sum to {sum(rewards)!r}, "
+                           f"-sum(JCT)/3600 is {want!r}")
+    return True
+
+
+def run_env(jobs, cluster, faults, solver: str, device=None,
+            profile: bool = False) -> dict:
+    """One ``run_policy`` episode of ``HadarScheduler(solver, device)``
+    over ``ClusterSchedulingEnv(jobs, cluster, faults=faults,
+    reward="neg_jct")`` with price observations, each observation held by
+    ``check_obs`` as it is built; the launch counts set to 0 just before
+    the episode and read just after.  Reports the wall, the steps, the
+    host time spent building observations (``obs_s``, the checks not
+    included) and, with ``profile``, the device time of K4, K5 and all
+    the device's work as in ``run_sim`` (needs the card)."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity
+    from repro_torch.core.hadar import HadarScheduler
+    from repro_torch.env import ClusterSchedulingEnv, run_policy
+    from repro_torch.sim.metrics import result_fields
+    env = ClusterSchedulingEnv(jobs, cluster, faults=faults,
+                               reward="neg_jct", price_obs=True)
+    sched = HadarScheduler(solver=solver, device=device)
+    observe = env._observe
+    obs_s, checked = [0.0], [0]
+
+    def observed(cp):
+        t0 = time.perf_counter()
+        obs = observe(cp)
+        obs_s[0] += time.perf_counter() - t0
+        check_obs(obs, cp, env)
+        checked[0] += 1
+        return obs
+    env._observe = observed
+    sync = _sync(device)
+    prof = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+            if profile else contextlib.nullcontext())
+    sync()
+    zero_launches()
+    with prof:
+        t0 = time.perf_counter()
+        res, rewards = run_policy(env, sched)
+        sync()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    out = {"res": res, "rewards": rewards, "fields": result_fields(res),
+           "wall_s": wall, "steps": len(rewards), "obs_s": obs_s[0],
+           "obs_checked": checked[0], "launches": launches}
+    if profile:
+        out.update(_device_ms(prof))
+        out["device_share"] = out["device_ms"] / 1e3 / wall
+    return out
+
+
+def compare_rows(sanitize: bool, policies):
+    """``repro_torch.env.compare.compare`` of COMPARE_JOBS fig5 jobs on
+    ``simulation_cluster()`` under FAULT_MODEL in event mode, solver
+    cuda, with
+    ``REPRO_SANITIZE`` set to ``sanitize`` for the call and restored
+    after; each policy's run timed and its launches counted (set to 0
+    just before the run, read just after).  Returns the table and
+    {policy: {"wall_s", "launches"}}."""
+    import os
+    from repro_torch.core.trace import philly_trace, simulation_cluster
+    import repro_torch.env.compare as cmp
+    from repro_torch.sim.faults import FailureModel
+    sync = _sync(None)
+    runs = {}
+    real = cmp.run_one
+
+    def timed(name, *a, **kw):
+        sync()
+        zero_launches()
+        t0 = time.perf_counter()
+        res = real(name, *a, **kw)
+        sync()
+        runs[name] = {"wall_s": time.perf_counter() - t0,
+                      "launches": read_launches()}
+        return res
+    old = os.environ.get("REPRO_SANITIZE")
+    os.environ["REPRO_SANITIZE"] = "1" if sanitize else "0"
+    try:
+        with mock.patch.object(cmp, "run_one", timed):
+            doc = cmp.compare(philly_trace(COMPARE_JOBS, seed=1),
+                              simulation_cluster(), policies, mode="event",
+                              faults=FailureModel(**FAULT_MODEL),
+                              solver="cuda",
+                              trace_name=f"fig5(n={COMPARE_JOBS}, seed=1)")
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_SANITIZE")
+        else:
+            os.environ["REPRO_SANITIZE"] = old
+    return doc, runs
+
+
+def check_compare(doc, runs):
+    """The sanitized table: valid, each row that of the JAX package
+    (REF_COMPARE: strings and integers exactly, floats within
+    REF_REL_TOL), Hadar's TTD below every blind policy's; K4 and K5
+    launched by the runs (``compare_rows``) of COMPARE_KERNEL_POLICIES and
+    no kernel by any other's."""
+    import repro_torch.env.compare as cmp
+    probs = cmp.validate_table(doc)
+    if probs:
+        raise RuntimeError(f"env compare: invalid table: {probs}")
+    rows = doc["policies"]
+    if [r["policy"] for r in rows] != [r["policy"] for r in REF_COMPARE]:
+        raise RuntimeError("env compare: the policies differ from the JAX "
+                           "package's table")
+    for got, want in zip(rows, REF_COMPARE):
+        for key, value in want.items():
+            ok = (abs(got[key] - value) <= REF_REL_TOL * abs(value)
+                  if isinstance(value, float) else got[key] == value)
+            if not ok:
+                raise RuntimeError(f"env compare {want['policy']}: {key} "
+                                   f"{got[key]!r}, the JAX package "
+                                   f"{value!r}")
+    by = {r["policy"]: r for r in rows}
+    blind = [p for p in cmp.BLIND_POLICIES if p in by]
+    if not blind or any(by["hadar"]["ttd_hours"] >= by[p]["ttd_hours"]
+                        for p in blind):
+        raise RuntimeError("env compare: Hadar's TTD is not below every "
+                           "blind policy's")
+    for name, run in runs.items():
+        got = run["launches"]
+        want = name in COMPARE_KERNEL_POLICIES
+        if bool(got["find_alloc"]) != want or \
+                bool(got["commit_scan"]) != want or \
+                any(v for k, v in got.items()
+                    if k not in ("find_alloc", "commit_scan")):
+            raise RuntimeError(f"env compare {name}: launches {got}")
+
+
+def phase_env(events_fields):
+    """The scheduling env on the card.  (a) ``run_policy`` of
+    ``HadarScheduler(solver="cuda")`` through ``ClusterSchedulingEnv`` on
+    phase events' trace, cluster and failure model, reward neg_jct, price
+    observations on, traced by ``torch.profiler`` (device activity only):
+    the result equal to phase events' cuda ``simulate_events`` result
+    (``events_fields``) in every field but host time, K4 and K5 launched,
+    every observation consistent (``check_obs``), the rewards summing to
+    -sum(JCT)/3600 where every job finishes.  (b) The policy-comparison
+    table under the sanitizer, solver cuda (``compare_rows``), held to
+    the JAX package's (``check_compare``), and its Hadar and HadarE runs
+    once more without the sanitizer: equal rows, each policy's wall."""
+    from repro_torch.env.compare import DEFAULT_POLICIES
+    from repro_torch.sim.faults import FailureModel
+    jobs, cluster, _ = fig5_round(SIM_JOBS, "grown")
+    run = run_env(jobs, cluster, FailureModel(**FAULT_MODEL), "cuda",
+                  profile=True)
+    out = {"episode": {k: v for k, v in run.items()
+                       if k not in ("res", "rewards", "fields")}}
+    out["episode"].update(s_per_step=run["wall_s"] / max(1, run["steps"]),
+                          obs_share=run["obs_s"] / run["wall_s"],
+                          reward_sum=sum(run["rewards"]))
+    log("[env] episode " + json.dumps(out["episode"]))
+    if run["fields"] != events_fields:
+        raise RuntimeError("env: the episode's result differs from phase "
+                           "events' cuda simulate_events result")
+    got = run["launches"]
+    if not (got["find_alloc"] and got["commit_scan"]):
+        raise RuntimeError(f"env: episode launches {got}")
+    out["episode"]["rewards_telescoped"] = check_rewards(run["res"],
+                                                         run["rewards"])
+    doc, runs = compare_rows(True, DEFAULT_POLICIES)
+    out["compare"] = {"rows": doc["policies"], "runs": runs}
+    log("[env] compare " + json.dumps(runs))
+    check_compare(doc, runs)
+    plain, plain_runs = compare_rows(False, COMPARE_KERNEL_POLICIES)
+    out["compare"]["unsanitized_runs"] = plain_runs
+    log("[env] compare unsanitized " + json.dumps(plain_runs))
+    want = [r for r in doc["policies"]
+            if r["policy"] in COMPARE_KERNEL_POLICIES]
+    if plain["policies"] != want:
+        raise RuntimeError("env compare: the unsanitized rows differ from "
+                           "the sanitized ones")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2063,9 +2373,10 @@ def main(argv=None) -> int:
     serve_rwkv = phase_serve(args.seed, "rwkv6-7b")
     schedule = phase_schedule()
     sim = phase_simulate()
-    events = phase_events()
+    events, events_fields = phase_events()
     mini = phase_mini()
     hadare = phase_hadare()
+    env = phase_env(events_fields)
     sched_main = next(r for r in schedule
                       if (r["n"], r["topo"]) == SCHED_MAIN)["cuda_launches"]
 
@@ -2090,6 +2401,7 @@ def main(argv=None) -> int:
     for k in kernels[-2:]:
         k["event_run_launches"] = events["cuda"]["launches"][k["name"]]
         k["hadare_run_launches"] = hadare["cuda"]["launches"][k["name"]]
+        k["env_run_launches"] = env["episode"]["launches"][k["name"]]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -2099,7 +2411,7 @@ def main(argv=None) -> int:
                                    "serve_rwkv": serve_rwkv,
                                    "schedule": schedule, "simulate": sim,
                                    "events": events, "mini": mini,
-                                   "hadare": hadare,
+                                   "hadare": hadare, "env": env,
                                    "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

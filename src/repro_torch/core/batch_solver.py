@@ -38,6 +38,12 @@ Solvers: ``numpy`` (the per-job oracle), ``cuda`` (the kernels; raises
 the CPU, where the kernels' plain versions run — the tests' path) and
 ``auto`` (the card when there is one and the queue clears the crossover;
 the JAX package's fallback constants, not yet calibrated on the card).
+
+Under the runtime sanitizer (``REPRO_SANITIZE``, read at each call) every
+candidate of ``find_alloc_batch`` and of the K5 commit is checked
+(``repro_torch.analysis.invariants.check_candidate``), and a K5 carry
+that differs from the host's commit raises ``InvariantViolation`` where
+it otherwise raises ``RuntimeError``.
 """
 from __future__ import annotations
 
@@ -368,6 +374,14 @@ def find_alloc_batch(jobs: List, avail: np.ndarray, gamma: np.ndarray,
         alloc = {ps.keys[m]: int(counts[m]) for m in ms}
         results[j] = Candidate(alloc, cost, payoff,
                                float(x_sorted[j, jmax]))
+    from repro_torch.analysis import invariants as _inv
+    if _inv.sanitize_enabled():
+        for job, cand in zip(jobs, results):
+            if cand is not None:
+                _inv.check_candidate(job.job_id, job.n_workers,
+                                     cand.alloc, cand.payoff, cand.cost,
+                                     forced=force,
+                                     context="(find_alloc_batch)")
     if details:
         det = BatchDetails(
             avail0=tab["avail"].copy(), cumP=tab["cumP"], u_tab=u_tab[:J],
@@ -638,10 +652,24 @@ def _scan_commit(jobs: List, avail: np.ndarray, gamma: np.ndarray,
     total = counts[:J].sum(axis=0)
     avail -= total
     gamma += total
+    from repro_torch.analysis import invariants as _inv
+    san = _inv.sanitize_enabled()
     # the kernel's carry is what the host applies (integer-valued floats)
     if not np.array_equal(free_f, np.asarray(avail, dtype=float)):
+        if san:
+            _inv.violate("conservation",
+                         "scan carry free_arr diverged from host delta",
+                         max_err=float(np.abs(free_f
+                                              - np.asarray(avail)).max()))
         raise RuntimeError("commit_scan: the carried free vector differs "
                            "from the host's commit")
+    if san:
+        for job in jobs:
+            cand = results.get(job.job_id)
+            if cand is not None:
+                _inv.check_candidate(job.job_id, job.n_workers,
+                                     cand.alloc, cand.payoff, cand.cost,
+                                     context="(scan_commit)")
     return results
 
 

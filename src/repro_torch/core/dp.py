@@ -1,8 +1,9 @@
 """Algorithm 2: DP_allocation + FIND_ALLOC — the dual subroutine.
 
-The port's copy of ``repro.core.dp``, without the observability and
-sanitizer hooks.  FIND_ALLOC builds candidate task-level allocations for
-one job:
+The port's copy of ``repro.core.dp``, without the observability hooks;
+``dp_allocation(sanitize=)`` checks each selection with the runtime
+sanitizer (``repro_torch.analysis.invariants``).  FIND_ALLOC builds
+candidate task-level allocations for one job:
   * consolidated — pack all W_j tasks on the fewest servers, preferring
     GPU types with the highest X_j^r;
   * non-consolidated — spread tasks across servers picking globally
@@ -212,11 +213,32 @@ def _scan_standalone(queue: List[Job], avail0: np.ndarray,
                                force=False) for j in queue]
 
 
+def _sanitize_selection(sel: Dict[int, "Candidate"], queue: List[Job],
+                        ps: PriceState, avail0: np.ndarray) -> None:
+    """Sanitizer hook: gang atomicity + dual feasibility per selected
+    candidate, joint capacity across the selection (non-forced path, so
+    every payoff must clear the mu_j > 0 admission gate)."""
+    from repro_torch.analysis import invariants as _inv
+    by_id = {j.job_id: j for j in queue}
+    for job_id, cand in sel.items():
+        job = by_id.get(job_id)
+        if job is None:
+            _inv.violate("gang-atomicity",
+                         "selection references a job not in the queue",
+                         job=job_id)
+        _inv.check_candidate(job_id, job.n_workers, cand.alloc,
+                             cand.payoff, cand.cost,
+                             context="(dp_allocation)")
+    free_map = {k: float(avail0[m]) for k, m in ps.key_index.items()}
+    _inv.check_selection(sel, free_map, "(dp_allocation)")
+
+
 def dp_allocation(queue: List[Job],
                   free: Optional[Dict[Tuple[int, str], int]],
                   ps: PriceState, now: float, utility: UtilityFn,
                   max_exact: int = 64,
-                  solver: Optional[str] = None) -> Dict[int, Candidate]:
+                  solver: Optional[str] = None,
+                  sanitize: bool = None) -> Dict[int, Candidate]:
     """Select jobs + allocations maximizing total payoff (Algorithm 2).
 
     Exact select/skip DP with memoization for queues up to ``max_exact``;
@@ -224,17 +246,25 @@ def dp_allocation(queue: List[Job],
     keeping the cluster state as arrays and committing winners
     incrementally.  On the card the greedy commit runs through
     ``batch_solver.commit_greedy`` (conflict-free waves + kernel K5); the
-    NumPy path keeps the sequential re-solve loop, its bitwise oracle."""
+    NumPy path keeps the sequential re-solve loop, its bitwise oracle.
+    ``sanitize`` (default: the ``REPRO_SANITIZE`` flag) checks the
+    selection against the paper's invariants."""
+    from repro_torch.analysis import invariants as _inv
     from repro_torch.core import batch_solver as bs
 
+    _san = _inv.sanitize_enabled(sanitize)
     free_is_ps = free is None
     if len(queue) > max_exact:
         avail0 = ps.free_arr.copy() if free_is_ps else ps.free_to_arr(free)
+        avail_init = avail0.copy() if _san else None
         gamma0 = ps.gamma_arr.copy()
         if bs.use_commit(solver, len(queue), ps.device):
             dev = ps.device_view("free") if free_is_ps else None
-            return bs.commit_greedy(queue, avail0, gamma0, ps, now, utility,
-                                    avail_dev=dev)
+            chosen: Dict[int, Candidate] = bs.commit_greedy(
+                queue, avail0, gamma0, ps, now, utility, avail_dev=dev)
+            if _san:
+                _sanitize_selection(chosen, queue, ps, avail_init)
+            return chosen
         # greedy pass: highest standalone payoff first
         cands = _scan_standalone(queue, avail0, gamma0, ps, now, utility,
                                  solver, free_is_ps)
@@ -243,7 +273,7 @@ def dp_allocation(queue: List[Job],
         order = [(c.payoff / max(1, j.n_workers), j)
                  for j, c in zip(queue, cands) if c]
         order.sort(key=lambda t: -t[0])
-        chosen: Dict[int, Candidate] = {}
+        chosen = {}
         avail = avail0
         gamma = gamma0
         # sequential commit: re-solve each winner at the accumulated
@@ -257,6 +287,8 @@ def dp_allocation(queue: List[Job],
                     m = ps.key_index[k]
                     avail[m] -= v
                     gamma[m] += v
+        if _san:
+            _sanitize_selection(chosen, queue, ps, avail_init)
         return chosen
 
     memo: Dict = {}
@@ -301,4 +333,8 @@ def dp_allocation(queue: List[Job],
         return memo[k]
 
     _, sel = rec(0, {})
+    if _san:
+        avail_chk = (ps.free_arr.copy() if free_is_ps
+                     else ps.free_to_arr(free))
+        _sanitize_selection(sel, queue, ps, avail_chk)
     return sel

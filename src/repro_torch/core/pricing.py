@@ -7,9 +7,12 @@ exponentially to U_max as the server fills, blocking low-utility jobs.
 alpha = max_r(1, ln(Umax/Umin)) gives the 2*alpha competitive bound
 (Theorem 2).
 
-The port's copy of ``repro.core.pricing``, with the observability and
-sanitizer hooks left out (they only record or check).  Every (node,
-gpu_type) pair of the cluster is a *key* (in ``Cluster.free_map``
+The port's copy of ``repro.core.pricing``, with the observability hooks
+left out (they only record).  The sanitizer's checks
+(``repro_torch.analysis.invariants``, ``sanitize=`` or
+``REPRO_SANITIZE``) run after ``__init__``, ``refresh``, ``commit``,
+``commit_batch`` and ``release``; off, each costs one bool test.  Every
+(node, gpu_type) pair of the cluster is a *key* (in ``Cluster.free_map``
 order); capacity, U-bounds, gamma and the free-device vector live in
 aligned NumPy arrays.  ``gamma`` stays a dict that writes through to
 ``gamma_arr``.  ``device_view()`` keeps a cached tensor of each state
@@ -24,6 +27,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import invariants as _inv
 from repro_torch.core.types import Cluster, Job
 from repro_torch.core.utility import UtilityFn, effective_throughput
 from repro_torch.device import DeviceLike, resolve_device
@@ -37,6 +41,11 @@ class _GammaDict(dict):
         self._ps = ps
 
     def _sync(self, key, value) -> None:
+        if not self._ps._in_managed_op:
+            # direct gamma writes replay external occupancy; the
+            # sanitizer's allocated+free==capacity conservation check
+            # only holds while commit/release drive all mutations
+            self._ps._conserved = False
         idx = self._ps.key_index.get(key)
         if idx is not None:
             self._ps.gamma_arr[idx] = value
@@ -84,20 +93,27 @@ class _GammaDict(dict):
 class PriceState:
     """``device`` is where ``device_view`` puts its tensors: the card
     unless the caller asks for the CPU (resolved at the first view, so a
-    NumPy-only scheduler never needs CUDA)."""
+    NumPy-only scheduler never needs CUDA).  ``sanitize`` (default: the
+    ``REPRO_SANITIZE`` flag) is resolved once, here."""
 
     def __init__(self, cluster: Cluster, jobs: List[Job], horizon: float,
                  utility: UtilityFn = effective_throughput,
-                 now: float = 0.0, device: DeviceLike = None):
+                 now: float = 0.0, device: DeviceLike = None,
+                 sanitize: bool = None):
         self.cluster = cluster
         self.utility = utility
         self.horizon = horizon
         self.device = device
+        self._sanitize = _inv.sanitize_enabled(sanitize)
+        self._in_managed_op = False
+        self._conserved = True
         self.u_max: Dict[str, float] = {}
         self.u_min: Dict[str, float] = {}
         self._compute_bounds(jobs, now)
         self._build_arrays()
         self.gamma: Dict[Tuple[int, str], int] = _GammaDict(self)
+        if self._sanitize:
+            _inv.check_price_state(self, "after __init__")
 
     # ---- Eqs. 6-7 ------------------------------------------------------
     def _compute_bounds(self, jobs: List[Job], now: float) -> None:
@@ -216,9 +232,16 @@ class PriceState:
         self.umin_arr[:] = [self.u_min[r] for (_, r) in self.keys]
         self.umax_arr[:] = [self.u_max[r] for (_, r) in self.keys]
         np.divide(self.umax_arr, self.umin_arr, out=self.q_arr)
-        self.gamma.clear()              # zeroes gamma_arr in place
+        self._in_managed_op = True
+        try:
+            self.gamma.clear()              # zeroes gamma_arr in place
+        finally:
+            self._in_managed_op = False
         self.free_arr[:] = self.cap_arr
+        self._conserved = True              # clean slate: gamma+free==cap
         self._touch("umin", "umax", "q", "free")
+        if self._sanitize:
+            _inv.check_price_state(self, "after refresh")
 
     def free_to_arr(self, free: Dict[Tuple[int, str], int]) -> np.ndarray:
         """Project a free-count dict onto the key axis."""
@@ -247,18 +270,32 @@ class PriceState:
         return max([1.0] + [math.log(self.u_max[r] / self.u_min[r])
                             for r in self.u_max])
 
-    def commit(self, alloc: Dict[Tuple[int, str], int]) -> None:
-        for key, c in alloc.items():
-            self.gamma[key] = self.gamma.get(key, 0) + c
-            m = self.key_index.get(key)
-            if m is not None:
-                self.free_arr[m] -= c
+    def _apply(self, alloc: Dict[Tuple[int, str], int], op: str) -> None:
+        """Add ``alloc`` to gamma and take it from the free vector, with
+        the sanitizer's checks before and after."""
+        if self._sanitize:
+            _inv.check_commit_amounts(self, alloc, op)
+        self._in_managed_op = True
+        try:
+            for key, c in alloc.items():
+                self.gamma[key] = self.gamma.get(key, 0) + c
+                m = self.key_index.get(key)
+                if m is not None:
+                    self.free_arr[m] -= c
+        finally:
+            self._in_managed_op = False
         self._touch("free")
+        if self._sanitize:
+            _inv.check_price_state(self, f"after {op}")
+
+    def commit(self, alloc: Dict[Tuple[int, str], int]) -> None:
+        self._apply(alloc, "commit")
 
     def commit_batch(self, allocs) -> None:
         """Commit a whole wave of winner allocations in one aggregated
         free/gamma delta; the same as one ``commit`` per allocation
-        (integer adds commute)."""
+        (integer adds commute), but the sanitizer checks the aggregate
+        once."""
         allocs = [a for a in allocs if a]
         if not allocs:
             return
@@ -266,16 +303,35 @@ class PriceState:
         for alloc in allocs:
             for key, c in alloc.items():
                 total[key] = total.get(key, 0) + c
-        self.commit(total)
+        self._apply(total, "commit_batch")
 
     def release(self, alloc: Dict[Tuple[int, str], int]) -> None:
-        for key, c in alloc.items():
-            self.gamma[key] = max(0, self.gamma.get(key, 0) - c)
-            m = self.key_index.get(key)
-            if m is not None:
-                self.free_arr[m] = min(self.cap_arr[m],
-                                       self.free_arr[m] + c)
+        if self._sanitize:
+            _inv.check_commit_amounts(self, alloc, "release")
+            if self._conserved:
+                # clamping would silently swallow a mismatched release;
+                # while conservation holds, releasing more than was
+                # committed is an accounting bug, not a recovery path
+                for key, c in alloc.items():
+                    if c > self.gamma.get(key, 0):
+                        _inv.violate(
+                            "conservation",
+                            "release exceeds committed occupancy",
+                            key=key, release=c,
+                            committed=self.gamma.get(key, 0))
+        self._in_managed_op = True
+        try:
+            for key, c in alloc.items():
+                self.gamma[key] = max(0, self.gamma.get(key, 0) - c)
+                m = self.key_index.get(key)
+                if m is not None:
+                    self.free_arr[m] = min(self.cap_arr[m],
+                                           self.free_arr[m] + c)
+        finally:
+            self._in_managed_op = False
         self._touch("free")
+        if self._sanitize:
+            _inv.check_price_state(self, "after release")
 
     def snapshot(self) -> Tuple:
         return tuple(sorted((k, v) for k, v in self.gamma.items() if v))

@@ -1,8 +1,10 @@
 """Backends that plug schedulers and HadarE into the simulation engines.
 
-The port's copy of ``repro.sim.adapters``, without the observability and
-sanitizer hooks (the kept branches are those the JAX package runs with
-both off).  A consultation is timed with ``time.perf_counter()``.
+The port's copy of ``repro.sim.adapters``, without the observability hooks
+(the kept branches are those the JAX package runs with observability
+off).  A consultation is timed with ``time.perf_counter()``.
+``simulate_hadare(sanitize=)`` checks the paper's invariants every round
+(``repro_torch.analysis.invariants``).
 
 ``CountingScheduler`` wraps any ``repro_torch.core.schedulers.Scheduler``
 with call/latency instrumentation, and ``run`` dispatches one workload to
@@ -32,10 +34,11 @@ import numpy as np
 
 from repro_torch.core.schedulers import Scheduler
 from repro_torch.core.types import Cluster, Job, alloc_nodes, alloc_size
+from repro_torch.analysis import invariants as _inv
 from repro_torch.sim.engine import (RESTART_PENALTY, _alloc_equal,
-                                    _apply_solver, _job_penalty,
-                                    _reset_jobs, simulate_events,
-                                    simulate_rounds)
+                                    _apply_solver, _cap_by_key,
+                                    _job_penalty, _reset_jobs,
+                                    simulate_events, simulate_rounds)
 from repro_torch.sim.faults import FaultState, resolve_faults, \
     select_evictions
 from repro_torch.sim.metrics import RoundRecord, SimResult
@@ -99,6 +102,7 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
                     scheduler=None, sync_overhead: float = 5.0,
                     fast_forward: bool = True,
                     solver: Optional[str] = None,
+                    sanitize: bool = None,
                     faults=None) -> SimResult:
     """Vectorized, event-aware HadarE simulation (see module docstring).
     ``jobs`` are parents; metrics are reported at parent granularity.
@@ -111,12 +115,18 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
     boundary (progress is pooled per parent and committed per round, so
     nothing rolls back — the sibling copies' pool keeps everything the
     evicted copy contributed), and the extra restart penalty an evicted
-    copy pays when it reallocates is charged against goodput."""
+    copy pays when it reallocates is charged against goodput.
+
+    ``sanitize`` (default: the ``REPRO_SANITIZE`` flag) checks down
+    allocations, capacity, sibling disjointness, progress, utilization
+    and goodput every round."""
     from repro_torch.core.hadar import HadarScheduler
     from repro_torch.core.hadare import _dedupe_siblings, fork_job
 
     sched = scheduler or HadarScheduler()
     _apply_solver(sched, solver)
+    _san = _inv.sanitize_enabled(sanitize)
+    cap = _cap_by_key(cluster) if _san else None
     parents = sorted(jobs, key=lambda j: (j.arrival, j.job_id))
     _reset_jobs(parents)
     # HadarE copies are single-node (fork_job), so a parent whose gang
@@ -185,6 +195,8 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
                     parents[pi].evictions += 1
                     fault_pending.add(c.job_id)
                     ev_total += 1
+                if _san:
+                    _inv.check_down_allocs(live, fs.down, t, "hadare")
             avail_gpus, avail_nodes = fs.up_counts()
         view = fs.view() if fs is not None else cluster
         # the consult covers schedule + sibling dedupe, matching the
@@ -225,6 +237,11 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
             rw[pi, ci] = c.bottleneck_rate(new) * alloc_size(new)
             wmat[pi, ci] = alloc_size(new)
             busy_nodes.update(alloc_nodes(new))
+        if _san:
+            _inv.check_cluster_allocs(live, cap, t, "hadare")
+            for i in np.nonzero(registered)[0]:
+                _inv.check_sibling_nodes(parents[i].job_id,
+                                         copy_objs[i], t)
 
         # --- aggregation and re-split as (parent × copy) array ops -----
         eff = np.clip(round_len - pen - sync_overhead, 0.0, None)
@@ -263,6 +280,15 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
             for ci, c in enumerate(copy_objs[i]):
                 c.quota = float(quota[i, ci])
 
+        if _san:
+            for i, p in enumerate(parents):
+                if float(done[i]) < -1e-9 \
+                        or float(done[i]) > float(total[i]) + 1e-6:
+                    _inv.violate("progress-bound",
+                                 "parent done_iters outside "
+                                 "[0, total_iters]", engine="hadare",
+                                 t=t, job=p.job_id, done=float(done[i]),
+                                 total=float(total[i]))
         n_active = int((((total - done) > 1e-9) & (arrivals <= t)).sum())
         n_running = int(allocated.any(axis=1).sum())
         rounds.append(RoundRecord(
@@ -277,6 +303,9 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
             sched_seconds=sched_s))
         busy_total += busy_gpu_time
         avail_total += avail_gpus * round_len
+        if _san:
+            _inv.check_utilization(rounds[-1].gru, rounds[-1].cru, t,
+                                   "hadare")
         t += round_len
         rnd += 1
 
@@ -340,11 +369,14 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
         rnd += skip
 
     total_s = max((p.finish_time or t) for p in parents) if parents else 0.0
-    return SimResult("hadare", rounds, parents, total_s,
-                     gpu_seconds_busy=busy_total,
-                     gpu_seconds_avail=avail_total,
-                     gpu_seconds_lost=lost_total,
-                     evictions=ev_total)
+    res = SimResult("hadare", rounds, parents, total_s,
+                    gpu_seconds_busy=busy_total,
+                    gpu_seconds_avail=avail_total,
+                    gpu_seconds_lost=lost_total,
+                    evictions=ev_total)
+    if _san:
+        _inv.check_goodput(res.goodput(), res.gru_overall(), "hadare")
+    return res
 
 
 # ---------------------------------------------------------------------------

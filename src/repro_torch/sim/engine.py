@@ -1,8 +1,10 @@
 """Simulation engines: round-quantized (paper §IV) and continuous-time.
 
-The port's copy of ``repro.sim.engine``, without the observability and
-sanitizer hooks (the kept branches are those the JAX package runs with
-both off).  A consultation is timed with ``time.perf_counter()``.
+The port's copy of ``repro.sim.engine``, without the observability hooks
+(the kept branches are those the JAX package runs with observability
+off).  A consultation is timed with ``time.perf_counter()``.
+``sanitize=`` (default: the ``REPRO_SANITIZE`` flag) checks the paper's
+invariants after every decision (``repro_torch.analysis.invariants``).
 
 ``simulate_rounds``: every ``round_len`` seconds the scheduler is
 consulted; steady rounds under a ``stable_when_idle`` scheduler
@@ -42,6 +44,7 @@ import math
 import time
 from typing import Dict, List, Optional, Set
 
+from repro_torch.analysis import invariants as _inv
 from repro_torch.core.types import Alloc, Cluster, Job, alloc_nodes, \
     alloc_size
 from repro_torch.sim.events import FAULT_KINDS, EventKind, EventQueue
@@ -60,6 +63,21 @@ def _alloc_equal(a: Optional[Alloc], b: Optional[Alloc]) -> bool:
 
 def _job_penalty(job: Job, default: float) -> float:
     return default if job.restart_penalty is None else job.restart_penalty
+
+
+def _cap_by_key(cluster: Cluster) -> Dict:
+    return {(n.node_id, r): int(c)
+            for n in cluster.nodes for r, c in n.gpus.items()}
+
+
+def _check_state(jobs: List[Job], cap, t: float, engine: str,
+                 prev_done: Dict[int, float]) -> None:
+    """Sanitizer hook run once per scheduling decision: live-allocation
+    gang atomicity + capacity conservation, progress bounds."""
+    _inv.check_cluster_allocs(jobs, cap, t, engine)
+    for j in jobs:
+        _inv.check_progress(j, t, engine, prev_done.get(j.job_id))
+        prev_done[j.job_id] = float(j.done_iters)
 
 
 def _reset_jobs(jobs: List[Job]) -> None:
@@ -94,10 +112,13 @@ def simulate_rounds(scheduler, jobs: List[Job], cluster: Cluster,
                     round_len: float = 360.0, max_rounds: int = 20000,
                     restart_penalty: float = RESTART_PENALTY,
                     solver: Optional[str] = None,
+                    sanitize: bool = None,
                     faults=None) -> SimResult:
     """Round-based simulation; O(events) on sparse traces via steady
     fast-forward.  ``solver`` ("cuda" | "numpy" | "auto") overrides the
     scheduler's pricing backend; decisions are backend-independent.
+    ``sanitize`` (default: the ``REPRO_SANITIZE`` flag) asserts the
+    paper's invariants after every scheduling decision.
 
     ``faults`` (a ``FailureModel``, ``FailureTrace``, or iterable of
     windows) injects node failures/spot preemptions *quantized to round
@@ -107,6 +128,9 @@ def simulate_rounds(scheduler, jobs: List[Job], cluster: Cluster,
     de-facto checkpoint) — only the fault-restart penalty counts
     against goodput."""
     _apply_solver(scheduler, solver)
+    _san = _inv.sanitize_enabled(sanitize)
+    cap = _cap_by_key(cluster) if _san else None
+    prev_done: Dict[int, float] = {}
     jobs = sorted(jobs, key=lambda j: (j.arrival, j.job_id))
     _reset_jobs(jobs)
     total_gpus = cluster.total_gpus()
@@ -131,6 +155,8 @@ def simulate_rounds(scheduler, jobs: List[Job], cluster: Cluster,
                     j.evictions += 1
                     ev_total += 1
                     fault_pending.add(j.job_id)
+                if _san:
+                    _inv.check_down_allocs(jobs, fs.down, t, "rounds")
             avail_gpus, avail_nodes = fs.up_counts()
         view = fs.view() if fs is not None else cluster
         if view.nodes:
@@ -203,6 +229,10 @@ def simulate_rounds(scheduler, jobs: List[Job], cluster: Cluster,
             sched_seconds=sched_s))
         busy_total += busy_gpu_time
         avail_total += avail_gpus * round_len
+        if _san:
+            _check_state(jobs, cap, t, "rounds", prev_done)
+            _inv.check_utilization(rounds[-1].gru, rounds[-1].cru, t,
+                                   "rounds")
         t += round_len
         rnd += 1
 
@@ -260,11 +290,14 @@ def simulate_rounds(scheduler, jobs: List[Job], cluster: Cluster,
         rnd += skip
 
     total = max((j.finish_time or t) for j in jobs) if jobs else 0.0
-    return SimResult(scheduler.name, rounds, jobs, total,
-                     gpu_seconds_busy=busy_total,
-                     gpu_seconds_avail=avail_total,
-                     gpu_seconds_lost=lost_total,
-                     evictions=ev_total)
+    res = SimResult(scheduler.name, rounds, jobs, total,
+                    gpu_seconds_busy=busy_total,
+                    gpu_seconds_avail=avail_total,
+                    gpu_seconds_lost=lost_total,
+                    evictions=ev_total)
+    if _san:
+        _inv.check_goodput(res.goodput(), res.gru_overall(), "rounds")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +348,7 @@ def _parse_action(sent) -> tuple:
 def event_stream(jobs: List[Job], cluster: Cluster,
                  round_len: float = 360.0, max_events: int = 500000,
                  restart_penalty: float = RESTART_PENALTY,
+                 sanitize: bool = None,
                  faults=None,
                  checkpoint_interval: Optional[float] = None,
                  stable: bool = False,
@@ -325,7 +359,10 @@ def event_stream(jobs: List[Job], cluster: Cluster,
     kernel but *yields* a :class:`ConsultPoint` at every scheduling
     decision instead of calling a scheduler object; the caller
     ``send()``s the desired allocation map back (see
-    :class:`ConsultPoint`).
+    :class:`ConsultPoint`).  ``simulate_events`` itself steps this
+    generator with a scheduler, so an external policy stepping the stream —
+    e.g. through ``repro_torch.env.ClusterSchedulingEnv`` — replays the
+    same decisions bitwise.
 
     ``stable`` mirrors ``Scheduler.stable_when_idle``: when False the
     stream re-consults on a ``round_len`` quantum while any job is
@@ -334,6 +371,9 @@ def event_stream(jobs: List[Job], cluster: Cluster,
 
     Returns the result via ``StopIteration.value``.
     """
+    _san = _inv.sanitize_enabled(sanitize)
+    cap = _cap_by_key(cluster) if _san else None
+    prev_done: Dict[int, float] = {}
     jobs = sorted(jobs, key=lambda j: (j.arrival, j.job_id))
     _reset_jobs(jobs)
     by_id = {j.job_id: j for j in jobs}
@@ -350,7 +390,7 @@ def event_stream(jobs: List[Job], cluster: Cluster,
         j.job_id for j in jobs if j.n_workers > 0
         and sum(c for r, c in cap_type.items()
                 if j.throughput.get(r, 0.0) > 0.0) < j.n_workers)
-    q = EventQueue()
+    q = EventQueue(sanitize=_san)
     for j in jobs:
         q.push_arrival(j.arrival, j.job_id)
     ftrace = resolve_faults(faults, cluster)
@@ -364,7 +404,8 @@ def event_stream(jobs: List[Job], cluster: Cluster,
             if math.isfinite(w.recover_time):
                 q.push_fault(w.recover_time, EventKind.NODE_RECOVER,
                              w.node_id)
-    recorder = MetricsRecorder(cluster.total_gpus(), len(cluster.nodes))
+    recorder = MetricsRecorder(cluster.total_gpus(), len(cluster.nodes),
+                               sanitize=_san)
     pen_until: Dict[int, float] = {j.job_id: 0.0 for j in jobs}
     # checkpoint anchoring for rollback: when the current allocation
     # started progressing (post-penalty) and from how many done iters
@@ -413,6 +454,8 @@ def event_stream(jobs: List[Job], cluster: Cluster,
         if not batch:
             break
         t_new = batch[0].time
+        if _san:
+            _inv.check_monotonic(t_new, t, "events")
         _accrue_and_record(t, t_new)
         t = t_new
         open_changed = 0
@@ -461,6 +504,12 @@ def event_stream(jobs: List[Job], cluster: Cluster,
                 recorder.add_loss(lost_gpu, eviction=True)
                 q.invalidate_completion(j.job_id)
                 open_changed += 1
+                if _san:
+                    # rollback legitimately decreases done_iters; move
+                    # the progress-monotonicity floor with it
+                    prev_done[j.job_id] = float(j.done_iters)
+            if _san:
+                _inv.check_down_allocs(jobs, fs.down, t, "events")
         if cap_changed:
             g, nn = fs.up_counts()
             recorder.set_capacity(g, nn)
@@ -473,6 +522,9 @@ def event_stream(jobs: List[Job], cluster: Cluster,
         if (fault_only and open_changed == 0
                 and not any(not j.is_done() and j.arrival <= t
                             and j.alloc is None for j in jobs)):
+            if _san:
+                _check_state(jobs, fs.live_capacity(), t, "events",
+                             prev_done)
             continue
 
         view = fs.view() if fs is not None else cluster
@@ -526,6 +578,11 @@ def event_stream(jobs: List[Job], cluster: Cluster,
                 t_fin = t + pen + j.remaining_iters / (rate * w)
                 q.push_completion(t_fin, j.job_id)
 
+        if _san:
+            _check_state(jobs,
+                         fs.live_capacity() if fs is not None else cap,
+                         t, "events", prev_done)
+
         # re-schedule quantum: always for rotating schedulers; for stable
         # ones only while some active job is still unallocated, so waiting
         # jobs are retried each round instead of silently starving.
@@ -546,6 +603,7 @@ def simulate_events(scheduler, jobs: List[Job], cluster: Cluster,
                     round_len: float = 360.0, max_events: int = 500000,
                     restart_penalty: float = RESTART_PENALTY,
                     solver: Optional[str] = None,
+                    sanitize: bool = None,
                     faults=None,
                     checkpoint_interval: Optional[float] = None
                     ) -> EventSimResult:
@@ -572,12 +630,14 @@ def simulate_events(scheduler, jobs: List[Job], cluster: Cluster,
     down-set changes).
 
     Built on :func:`event_stream`, so a policy stepping the stream
-    directly makes decisions against byte-identical state.
+    directly — or through ``repro_torch.env.ClusterSchedulingEnv`` —
+    makes decisions against byte-identical state.
     """
     _apply_solver(scheduler, solver)
     gen = event_stream(jobs, cluster, round_len=round_len,
                        max_events=max_events,
-                       restart_penalty=restart_penalty, faults=faults,
+                       restart_penalty=restart_penalty,
+                       sanitize=sanitize, faults=faults,
                        checkpoint_interval=checkpoint_interval,
                        stable=getattr(scheduler, "stable_when_idle",
                                       False),

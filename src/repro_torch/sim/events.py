@@ -1,7 +1,6 @@
 """Heap-based event queue for the continuous-time simulator.
 
-The port's copy of ``repro.sim.events``, without the sanitizer's
-pop-order check.
+The port's copy of ``repro.sim.events``.
 
 Six event kinds drive the engine:
 
@@ -70,13 +69,19 @@ class Event:
 
 
 class EventQueue:
-    """Min-heap of (time, kind, seq) with lazy completion invalidation."""
+    """Min-heap of (time, kind, seq) with lazy completion invalidation.
 
-    def __init__(self):
+    ``sanitize=True`` (the engines forward their resolved flag) asserts
+    pop-order monotonicity — the time-monotonic invariant of the
+    continuous-time engine — at a cost of one comparison per batch."""
+
+    def __init__(self, sanitize: bool = False):
         self._heap: List[tuple] = []
         self._seq = itertools.count()
         self._version: Dict[int, int] = {}      # job_id -> live version
         self._resched_at: Optional[float] = None
+        self._sanitize = bool(sanitize)
+        self._last_popped = float("-inf")
 
     def __len__(self) -> int:
         return len(self._heap)
@@ -141,6 +146,10 @@ class EventQueue:
         if not self._heap:
             return []
         t0 = self._heap[0][0]
+        if self._sanitize:
+            from repro_torch.analysis import invariants as _inv
+            _inv.check_monotonic(t0, self._last_popped, "event-queue")
+            self._last_popped = t0
         out: List[Event] = []
         while self._heap and self._heap[0][0] == t0:
             time, kind, _, payload, v = heapq.heappop(self._heap)

@@ -1,7 +1,7 @@
 """Simulation metrics: per-round / per-interval records and results.
 
-The port's copy of ``repro.sim.metrics``, without the observability and
-sanitizer hooks.  The continuous-time engine records *intervals* — the
+The port's copy of ``repro.sim.metrics``, without the observability
+hooks.  The continuous-time engine records *intervals* — the
 spans between consecutive events — instead of fixed rounds;
 :class:`IntervalRecord` adds the interval length ``dt`` and
 :class:`EventSimResult` reweights GRU/CRU by time so sparse traces
@@ -148,7 +148,8 @@ class EventSimResult(SimResult):
 class MetricsRecorder:
     """Incremental interval recorder for the event engine."""
 
-    def __init__(self, total_gpus: int, n_nodes: int):
+    def __init__(self, total_gpus: int, n_nodes: int,
+                 sanitize: bool = False):
         self.total_gpus = max(1, total_gpus)
         self.n_nodes = max(1, n_nodes)
         # live (fault-aware) capacity; set_capacity updates it as nodes
@@ -160,6 +161,7 @@ class MetricsRecorder:
         self.lost_gpu_seconds = 0.0
         self.evictions = 0
         self.records: List[IntervalRecord] = []
+        self._sanitize = bool(sanitize)
 
     def set_capacity(self, gpus: int, nodes: int) -> None:
         """Dynamic capacity under faults; applies to intervals closed
@@ -195,16 +197,26 @@ class MetricsRecorder:
             dt=dt)
         self.busy_gpu_seconds += busy_gpu_time
         self.avail_gpu_seconds += denom
+        if self._sanitize:
+            from repro_torch.analysis import invariants as _inv
+            _inv.check_utilization(rec.gru, rec.cru, t0, "events")
+            if self.records:
+                _inv.check_monotonic(t0, self.records[-1].t, "events",
+                                     "interval start")
         self.records.append(rec)
 
     def result(self, name: str, jobs: List[Job], total_seconds: float,
                n_events: int, sched_calls: int) -> EventSimResult:
-        return EventSimResult(name, list(self.records), jobs, total_seconds,
-                              gpu_seconds_busy=self.busy_gpu_seconds,
-                              gpu_seconds_avail=self.avail_gpu_seconds,
-                              gpu_seconds_lost=self.lost_gpu_seconds,
-                              evictions=self.evictions,
-                              n_events=n_events, sched_calls=sched_calls)
+        res = EventSimResult(name, list(self.records), jobs, total_seconds,
+                             gpu_seconds_busy=self.busy_gpu_seconds,
+                             gpu_seconds_avail=self.avail_gpu_seconds,
+                             gpu_seconds_lost=self.lost_gpu_seconds,
+                             evictions=self.evictions,
+                             n_events=n_events, sched_calls=sched_calls)
+        if self._sanitize:
+            from repro_torch.analysis import invariants as _inv
+            _inv.check_goodput(res.goodput(), res.gru_overall(), "events")
+        return res
 
 
 def result_fields(res) -> tuple:

@@ -1,8 +1,8 @@
 """The port stands alone: no ``jax`` and no ``repro`` import, anywhere in
 ``src/repro_torch``, ``chip_smoke.py``, ``chip_mutants.py`` or
 ``chip_compare.py``, and it
-serves, schedules and simulates under faults, HadarE included, with both
-blocked."""
+serves, schedules and simulates under faults, HadarE, the env and the
+sanitized policy comparison included, with both blocked."""
 import ast
 import os
 import subprocess
@@ -51,7 +51,13 @@ def test_no_jax_or_repro_imports():
             "src/repro_torch/sim/events.py",
             "src/repro_torch/sim/faults.py",
             "src/repro_torch/sim/replay.py",
-            "src/repro_torch/sim/adapters.py"} <= names
+            "src/repro_torch/sim/adapters.py",
+            "src/repro_torch/analysis/__init__.py",
+            "src/repro_torch/analysis/invariants.py",
+            "src/repro_torch/env/__init__.py",
+            "src/repro_torch/env/baselines.py",
+            "src/repro_torch/env/env.py",
+            "src/repro_torch/env/compare.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in FORBIDDEN]
@@ -114,6 +120,23 @@ hf = adapters.simulate_hadare(mix_jobs("M-4", cluster), cluster,
 assert all(p.finish_time is not None for p in he.jobs + hf.jobs)
 assert hf.evictions > 0, hf.evictions
 print("hadare", he.total_seconds, hf.total_seconds, hf.evictions)
+import os
+import repro_torch.env.compare as cmp
+from repro_torch.analysis import invariants
+from repro_torch.env import ClusterSchedulingEnv, SRTFScheduler, run_policy
+from repro_torch.core.trace import simulation_cluster
+cluster = simulation_cluster()
+res, rewards = run_policy(
+    ClusterSchedulingEnv(philly_trace(n_jobs=6, seed=1), cluster,
+                         faults=outage, sanitize=True),
+    HadarScheduler(solver="numpy"))
+assert all(j.finish_time is not None for j in res.jobs) and rewards
+os.environ["REPRO_SANITIZE"] = "1"
+assert invariants.sanitize_enabled()
+doc = cmp.compare(philly_trace(n_jobs=6, seed=1), cluster,
+                  ("hadar", "srtf"), device="cpu")
+assert cmp.validate_table(doc) == [], doc
+print("env", res.total_seconds, len(rewards), cmp.render_table(doc))
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 """
@@ -130,3 +153,16 @@ def test_serves_with_jax_and_repro_blocked():
     assert "scheduled" in res.stdout
     assert "events" in res.stdout
     assert "hadare" in res.stdout
+    assert "env" in res.stdout
+
+
+def test_compare_cli_runs_as_a_module():
+    """``python -m repro_torch.env.compare`` on the CPU, warnings as
+    errors: the lazy export leaves the module to runpy."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    res = subprocess.run(
+        [sys.executable, "-W", "error", "-m", "repro_torch.env.compare",
+         "--device", "cpu", "--fig5", "8", "--policies", "fcfs,srtf"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "fcfs" in res.stdout and "srtf" in res.stdout
