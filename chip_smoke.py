@@ -9,8 +9,9 @@ llama3.2-1b and rwkv6-7b at full width and depth (flash attention K1, the
 WKV6 scan K2, RMSNorm K3) and the Hadar decision path on the fig5 shape
 (FIND_ALLOC K4, the greedy commit K5), through the round and the event
 engine, HadarE's forked copies and the scheduling env, with and without
-faults, and the policy-comparison table under the runtime sanitizer.  Any
-failure raises and the script exits non-zero.
+faults, the policy-comparison table under the runtime sanitizer, and two
+faulted runs under the observer.  Any failure raises and the script exits
+non-zero.
 
 1. kernel  -- each kernel against its plain PyTorch version
    (``kernels/ref.py``) on the card, then timed on the card alone
@@ -153,6 +154,23 @@ failure raises and the script exits non-zero.
    Hadar and HadarE runs and nothing by the others; then the Hadar and
    HadarE rows once more without the sanitizer, equal.  Each policy's
    wall is reported.
+12. obs -- phase 7's faulted round run and phase 10's HadarE run again,
+   each under ``repro_torch.obs.session`` writing its trace, decision log
+   and metrics, with ``solver="cuda"`` and then ``"numpy"``
+   (``run_observed``), held by ``check_observed``: the cuda result equal
+   to the unobserved one that phase handed on in every field but host
+   time, K4's and K5's launches equal to its; the saved trace valid, its
+   sim-track ``interval`` spans the round records bitwise in ``ts`` and
+   ``dur``; each logged unit price Eq. 5 of its logged gamma, cap, u_min
+   and u_max bitwise; no runner-up above its winner; the decision log
+   the numpy run's record by record (but for ``solver``; the runner-ups'
+   kind, node, prefix and servers equal, payoffs within one ulp, and how
+   many differ is reported); the counts of decisions, evictions,
+   consults, faults, completions, PriceState operations and HadarE's
+   consolidation instants those of the JAX package (``REF_OBS``).  So
+   K5's runner-up outputs (``win2``, ``win2_pay``, ``sp_nserv``) are read
+   on the card.  Reports each run's observed and unobserved wall and the
+   trace's totals of the consult's spans (``OBS_SPANS``).
 
 Full-depth agreement of the two model paths is printed, not gated: the
 random init makes a deep stack chaotic.  It prints a ``{"kernels":
@@ -166,6 +184,7 @@ import copy
 import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -354,6 +373,26 @@ REF_COMPARE = [
 # HadarE's consults launch K4, and each takes the greedy commit on a
 # queue longer than max_exact_dp (24) where a wave stalls (K5)
 COMPARE_KERNEL_POLICIES = ("hadar", "hadare")
+# phase 12: phase 7's faulted round run ("rounds") and phase 10's HadarE
+# run ("hadare") again under repro_torch.obs.  The JAX package's counts
+# for the same runs under repro.obs.session, each with its own
+# HadarScheduler(solver="numpy") and FAULT_MODEL, run once on a CPU: the
+# counters, and the hadare.consolidation instants of the trace.
+REF_OBS = {
+    "rounds": {"consults": 252, "decisions": 509, "faults.evictions": 10,
+               "faults.node_fail": 6, "faults.node_recover": 6,
+               "faults.spot_preempt": 1, "jobs_completed": 48,
+               "pricestate_commit_batchs": 212, "pricestate_commits": 509,
+               "pricestate_refreshes": 239, "hadare.consolidation": 0},
+    "hadare": {"consults": 170, "decisions": 867, "faults.evictions": 3,
+               "faults.node_fail": 2, "faults.node_recover": 2,
+               "jobs_completed": 37, "pricestate_commit_batchs": 142,
+               "pricestate_commits": 867, "pricestate_refreshes": 165,
+               "hadare.consolidation": 170}}
+# the round of both runs: the engines' default, which phases 7 and 10 use
+OBS_ROUND = 360.0
+# the consult's host work as the trace splits it (wall-clock spans)
+OBS_SPANS = ("consult", "hadar.dp", "solver_dispatch", "pricestate.refresh")
 # timed forward calls per prefill path (the median is reported)
 FORWARD_REPS = 5
 # H100 SXM float64 peak without tensor cores (NVIDIA data sheet)
@@ -1956,7 +1995,8 @@ def phase_simulate():
     FAULT_MODEL: every result field but host time equal; the cuda runs
     launch K4 and K5, the numpy runs no kernel; the faulted run's rounds,
     evictions, average JCT and makespan those of the JAX package
-    (REF_ROUNDS_FAULTED)."""
+    (REF_ROUNDS_FAULTED).  Returns the summary and the faulted cuda run,
+    which phase obs repeats under the observer."""
     from repro_torch.sim.faults import FailureModel
     out = {}
     for name, n, faults in (("plain", SIM_JOBS, None),
@@ -1972,7 +2012,8 @@ def phase_simulate():
             res = runs["numpy"]["res"]
             _check_reference("simulate faulted", res, REF_ROUNDS_FAULTED, {
                 "rounds": len(res.rounds), "evictions": res.evictions})
-    return out
+            faulted = runs["cuda"]
+    return out, faulted
 
 
 def phase_events():
@@ -2075,7 +2116,8 @@ def phase_hadare():
     launches and buckets, the PriceStates built, and from
     ``torch.profiler``'s trace of the cuda run (device activity only) the
     device time of K4, K5 and all the device's work, and its share of the
-    wall."""
+    wall.  Returns the summary and the faulted cuda run, which phase obs
+    repeats under the observer."""
     from repro_torch.core.trace import MIXES, aws_cluster, mix_jobs, \
         testbed_cluster
     from repro_torch.sim.faults import FailureModel
@@ -2092,6 +2134,7 @@ def phase_hadare():
     _check_keys("hadare", runs)
     _check_reference("hadare", res, REF_HADARE, {
         "rounds": len(res.rounds), "evictions": res.evictions})
+    faulted = runs["cuda"]
     out["physical"] = []
     for make in (aws_cluster, testbed_cluster):
         cl = make()
@@ -2109,7 +2152,7 @@ def phase_hadare():
             _check_pair(phase, runs, k5=False)
             _check_keys(phase, runs)
             out["physical"].append(row)
-    return out
+    return out, faulted
 
 
 def _sync(device):
@@ -2337,6 +2380,212 @@ def phase_env(events_fields):
     return out
 
 
+def run_observed(engine: str, solver: str, jobs, cluster, faults, out_dir,
+                 device=None, **kw) -> dict:
+    """One run of ``simulate_rounds`` or HadarE's ``simulate_hadare``
+    (``engine`` "rounds" or "hadare") with ``HadarScheduler(solver,
+    device)`` under ``repro_torch.obs.session``, which writes its trace,
+    decision log and metrics into ``out_dir``; the launch counts set to 0
+    just before the run and read just after.  Returns the result, its
+    fields, the wall (one host-clock sample, the files' writing not
+    included), the launches and the three files read back."""
+    from repro_torch import obs
+    from repro_torch.core.hadar import HadarScheduler
+    from repro_torch.core.types import clone_jobs
+    from repro_torch.obs.explain import load_jsonl
+    from repro_torch.sim import adapters
+    from repro_torch.sim import engine as eng
+    from repro_torch.sim.metrics import result_fields
+    jobs = clone_jobs(jobs)
+    sched = HadarScheduler(solver=solver, device=device)
+    paths = {k: str(Path(out_dir) / f"{engine}_{solver}_{k}.{ext}")
+             for k, ext in (("trace", "json"), ("decisions", "jsonl"),
+                            ("metrics", "json"))}
+    sync = _sync(device)
+    sync()
+    zero_launches()
+    with obs.session(trace_path=paths["trace"],
+                     decisions_path=paths["decisions"],
+                     metrics_path=paths["metrics"]):
+        t0 = time.perf_counter()
+        if engine == "hadare":
+            res = adapters.simulate_hadare(jobs, cluster, scheduler=sched,
+                                           faults=faults, **kw)
+        else:
+            res = eng.simulate_rounds(sched, jobs, cluster, faults=faults,
+                                      **kw)
+        sync()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    return {"res": res, "fields": result_fields(res), "wall_s": wall,
+            "launches": launches,
+            "trace": json.loads(Path(paths["trace"]).read_text()),
+            "decisions": load_jsonl(paths["decisions"]),
+            "metrics": json.loads(Path(paths["metrics"]).read_text())}
+
+
+def obs_counts(run: dict) -> dict:
+    """The counts of an observed run that REF_OBS holds: decisions,
+    evictions, consults, faults, completions, PriceState operations, and
+    the trace's hadare.consolidation instants."""
+    counters = run["metrics"]["counters"]
+    out = {k: v for k, v in sorted(counters.items())
+           if k in ("consults", "decisions", "jobs_completed")
+           or k.startswith(("faults.", "pricestate_"))}
+    out["hadare.consolidation"] = sum(
+        1 for e in run["trace"]["traceEvents"]
+        if e.get("name") == "hadare.consolidation")
+    return out
+
+
+def _interval_spans(name: str, run: dict, round_len: float) -> int:
+    """The sim-track ``interval`` spans against the result's round records:
+    one span for each record but the fast-forwarded replicas, bitwise in
+    ``ts`` and ``dur``, with the record's own figures.  Returns how many
+    records were held."""
+    from repro_torch.obs.trace import SIM_PID
+    sim = [e for e in run["trace"]["traceEvents"]
+           if e.get("pid") == SIM_PID and e.get("ph") == "X"]
+    spans = [e for e in sim if e["name"] == "interval"]
+    skips = {e["ts"]: e["args"]["rounds"] for e in sim
+             if e["name"] == "fast_forward"}
+    recs, i = [], 0
+    rounds = run["res"].rounds
+    while i < len(rounds):
+        skip = skips.pop(rounds[i].t * 1e6, 0)
+        if skip:
+            i += skip
+            continue
+        recs.append(rounds[i])
+        i += 1
+    if skips or len(spans) != len(recs):
+        raise RuntimeError(f"obs {name}: {len(spans)} interval spans for "
+                           f"{len(recs)} records, {len(skips)} "
+                           f"fast-forwards unmatched")
+    for e, r in zip(spans, recs):
+        a = e["args"]
+        if (e["ts"] != r.t * 1e6 or e["dur"] != round_len * 1e6
+                or (a["gru"], a["cru"], a["running"], a["waiting"],
+                    a["changed"]) != (r.gru, r.cru, r.running, r.waiting,
+                                      r.changed)):
+            raise RuntimeError(f"obs {name}: the interval span at ts "
+                               f"{e['ts']} differs from its record at t "
+                               f"{r.t}")
+    return len(recs)
+
+
+def _same_runner_up(a, b) -> bool:
+    """Two runner-ups: equal but for the payoff, which may differ by one
+    ulp (K5's win2_pay gate allows as much)."""
+    if a is None or b is None:
+        return a is b
+    keys = ("kind", "node", "prefix", "n_servers")
+    return ([a.get(k) for k in keys] == [b.get(k) for k in keys]
+            and abs(a["payoff"] - b["payoff"])
+            <= math.ulp(max(abs(a["payoff"]), abs(b["payoff"]))))
+
+
+def check_observed(name: str, run: dict, plain: dict, numpy_run: dict,
+                   want: dict, round_len: float) -> dict:
+    """An observed cuda run against the same run unobserved (``plain``:
+    its fields and launches), against an observed numpy run of the same
+    trace, and against the JAX package's counts (``want``): the result
+    equal in every field but host time, the launches equal, the trace
+    valid, its interval spans the records (``_interval_spans``), every
+    logged unit price Eq. 5 of its logged inputs bitwise, no runner-up
+    above its winner, the decision log the numpy run's record by record
+    (but for ``solver``, and runner-up payoffs within one ulp), and the
+    counts ``want``.  Returns what it read."""
+    from repro_torch.obs.trace import summarize_trace, validate_trace
+    if run["fields"] != plain["fields"]:
+        raise RuntimeError(f"obs {name}: the observed result differs from "
+                           f"the unobserved one")
+    if run["launches"] != plain["launches"]:
+        raise RuntimeError(f"obs {name}: launches {run['launches']}, "
+                           f"unobserved {plain['launches']}")
+    problems = validate_trace(run["trace"])
+    if problems:
+        raise RuntimeError(f"obs {name}: invalid trace: {problems[:3]}")
+    held = _interval_spans(name, run, round_len)
+    runner_ups = 0
+    for rec in run["decisions"]:
+        for row in rec.get("alloc", []):
+            price = row["u_min"] * (row["u_max"] / row["u_min"]) ** (
+                row["gamma"] / max(row["cap"], 1))
+            if price != row["unit_price"]:
+                raise RuntimeError(f"obs {name}: job {rec['job']} at "
+                                   f"t={rec['t']}: unit price "
+                                   f"{row['unit_price']!r}, Eq. 5 {price!r}")
+        ru = rec.get("runner_up")
+        if ru:
+            runner_ups += 1
+            if ru["payoff"] > rec["payoff"]:
+                raise RuntimeError(f"obs {name}: job {rec['job']} at "
+                                   f"t={rec['t']}: runner-up payoff above "
+                                   f"the winner's")
+    ours, theirs = run["decisions"], numpy_run["decisions"]
+    if len(ours) != len(theirs):
+        raise RuntimeError(f"obs {name}: {len(ours)} decision records, the "
+                           f"numpy run {len(theirs)}")
+    ulp_off = 0
+    for a, b in zip(ours, theirs):
+        rest = ("solver", "runner_up")
+        if ({k: v for k, v in a.items() if k not in rest}
+                != {k: v for k, v in b.items() if k not in rest}
+                or not _same_runner_up(a.get("runner_up"),
+                                       b.get("runner_up"))):
+            raise RuntimeError(f"obs {name}: job {a['job']} at t={a['t']}: "
+                               f"the decision record differs from the "
+                               f"numpy run's")
+        if a.get("runner_up") and a["runner_up"] != b["runner_up"]:
+            ulp_off += 1
+    counts = obs_counts(run)
+    if counts != want:
+        raise RuntimeError(f"obs {name}: counts {counts}, the JAX package "
+                           f"{want}")
+    summary = summarize_trace(run["trace"])
+    return {"records": len(ours), "runner_ups": runner_ups,
+            "runner_up_payoffs_one_ulp_off": ulp_off,
+            "intervals_held": held, "counts": counts,
+            "kernel_shapes": run["metrics"]["counters"].get(
+                "kernel_shapes", 0),
+            "spans": {k: summary.get(f"wall-clock/{k}", {"count": 0,
+                                                         "total_ms": 0.0})
+                      for k in OBS_SPANS}}
+
+
+def phase_obs(rounds_plain: dict, hadare_plain: dict) -> dict:
+    """Observability on the card: phase simulate's faulted round run of
+    FAULT_ROUND_JOBS and phase hadare's run of HADARE_JOBS parents, each
+    again under ``repro_torch.obs.session`` with ``solver="cuda"`` and
+    FAULT_MODEL, its files in a temporary directory, and once more with
+    ``solver="numpy"``: each held by ``check_observed`` against the
+    unobserved cuda run that phase handed on (``rounds_plain``,
+    ``hadare_plain``), the numpy run and REF_OBS.  Reports each run's
+    observed and unobserved wall (one host-clock sample each) and the
+    trace's totals of the consult's spans (OBS_SPANS)."""
+    import tempfile
+    from repro_torch.sim.faults import FailureModel
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n, plain in (("rounds", FAULT_ROUND_JOBS, rounds_plain),
+                               ("hadare", HADARE_JOBS, hadare_plain)):
+            jobs, cluster, _ = fig5_round(n, "grown")
+            runs = {s: run_observed(name, s, jobs, cluster,
+                                    FailureModel(**FAULT_MODEL), tmp,
+                                    round_len=OBS_ROUND)
+                    for s in ("cuda", "numpy")}
+            row = check_observed(name, runs["cuda"], plain, runs["numpy"],
+                                 REF_OBS[name], OBS_ROUND)
+            row.update(jobs=n, launches=runs["cuda"]["launches"],
+                       wall_s=runs["cuda"]["wall_s"],
+                       unobserved_wall_s=plain["wall_s"],
+                       numpy_wall_s=runs["numpy"]["wall_s"])
+            log(f"[obs] {name} " + json.dumps(row))
+            out[name] = row
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2372,11 +2621,12 @@ def main(argv=None) -> int:
     prefill_rwkv = phase_prefill(args.seed, "rwkv6-7b")
     serve_rwkv = phase_serve(args.seed, "rwkv6-7b")
     schedule = phase_schedule()
-    sim = phase_simulate()
+    sim, rounds_plain = phase_simulate()
     events, events_fields = phase_events()
     mini = phase_mini()
-    hadare = phase_hadare()
+    hadare, hadare_plain = phase_hadare()
     env = phase_env(events_fields)
+    obs = phase_obs(rounds_plain, hadare_plain)
     sched_main = next(r for r in schedule
                       if (r["n"], r["topo"]) == SCHED_MAIN)["cuda_launches"]
 
@@ -2402,6 +2652,8 @@ def main(argv=None) -> int:
         k["event_run_launches"] = events["cuda"]["launches"][k["name"]]
         k["hadare_run_launches"] = hadare["cuda"]["launches"][k["name"]]
         k["env_run_launches"] = env["episode"]["launches"][k["name"]]
+        k["obs_run_launches"] = {name: obs[name]["launches"][k["name"]]
+                                 for name in obs}
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -2412,7 +2664,8 @@ def main(argv=None) -> int:
                                    "schedule": schedule, "simulate": sim,
                                    "events": events, "mini": mini,
                                    "hadare": hadare, "env": env,
-                                   "kernels": kernels}, indent=1))
+                                   "obs": obs, "kernels": kernels},
+                                  indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

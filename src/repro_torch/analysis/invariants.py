@@ -97,9 +97,14 @@ def violate(name: str, message: str, **snapshot) -> None:
 
 
 def _tick(check: str) -> None:
-    """Where the JAX package counts an executed check on its observer
-    (``repro.obs``), which the port has not ported yet: this is the branch
-    that runs there with observability off, a no-op."""
+    """Count an executed invariant check on the installed observer
+    (``repro_torch.obs``): one counter per check function, zero-cost when
+    observability is off.  Imported here, lazily: pricing imports this
+    module."""
+    from repro_torch import obs as _obs
+    ob = _obs.get()
+    if ob.enabled:
+        ob.count("invariant_checks." + check)
 
 
 # --------------------------------------------------------------------------

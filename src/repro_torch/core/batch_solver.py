@@ -39,6 +39,13 @@ the CPU, where the kernels' plain versions run — the tests' path) and
 ``auto`` (the card when there is one and the queue clears the crossover;
 the JAX package's fallback constants, not yet calibrated on the card).
 
+Under an observer (``repro_torch.obs``) each K4 and K5 call is counted
+(``solver_batch_calls``, ``solver_scan_calls``, ``kernel_shapes``), the
+greedy commit's waves and dispatches are traced, and every winner carries
+its runner-up: a masked second argmax over K4's payoff matrix, or K5's
+``win2``/``win2_pay``/``sp_nserv`` outputs, which are copied to the host
+only then.
+
 Under the runtime sanitizer (``REPRO_SANITIZE``, read at each call) every
 candidate of ``find_alloc_batch`` and of the K5 commit is checked
 (``repro_torch.analysis.invariants.check_candidate``), and a K5 carry
@@ -53,6 +60,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.core.utility import effective_throughput
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
@@ -83,18 +91,38 @@ def _card_usable(device: DeviceLike) -> bool:
     return dev.type == "cuda" and torch.cuda.is_available()
 
 
-def resolve_backend(solver: Optional[str], n_jobs: int,
-                    device: DeviceLike = None) -> str:
-    """The backend a queue of ``n_jobs`` runs on: ``"cuda"`` or
-    ``"numpy"``.  ``cuda`` raises ``RuntimeError`` where CUDA is absent
-    and ``device`` is not the CPU; ``auto`` applies the crossover."""
-    mode = check_solver(solver)
+def _backend(mode: str, n_jobs: int, device: DeviceLike) -> str:
+    """``resolve_backend`` of a checked ``mode``, without the observer."""
     if mode == "auto":
         return ("cuda" if _card_usable(device) and n_jobs >= AUTO_MIN_JOBS
                 else "numpy")
     if mode == "cuda":
         resolve_device(device)
     return mode
+
+
+def check_backend(solver: Optional[str], device: DeviceLike = None) -> None:
+    """Raise where ``solver`` cannot run on ``device``: an unknown name,
+    or ``cuda`` without CUDA when ``device`` is not the CPU."""
+    _backend(check_solver(solver), 0, device)
+
+
+def resolve_backend(solver: Optional[str], n_jobs: int,
+                    device: DeviceLike = None) -> str:
+    """The backend a queue of ``n_jobs`` runs on: ``"cuda"`` or
+    ``"numpy"``.  ``cuda`` raises ``RuntimeError`` where CUDA is absent
+    and ``device`` is not the CPU; ``auto`` applies the crossover, which
+    an observer logs so traces show which side of it a consult took."""
+    mode = check_solver(solver)
+    backend = _backend(mode, n_jobs, device)
+    _ob = _obs.get()
+    if _ob.enabled:
+        thr = AUTO_MIN_JOBS if mode == "auto" else None
+        if thr is not None:
+            _ob.gauge("solver.auto_min_jobs", thr)
+        _ob.instant("solver.resolve", backend=backend, n_jobs=n_jobs,
+                    threshold=thr)
+    return backend
 
 
 def use_batch(solver: Optional[str], n_jobs: int,
@@ -111,7 +139,7 @@ def use_commit(solver: Optional[str], n_jobs: int,
     mode = check_solver(solver)
     if mode == "auto":
         return _card_usable(device) and n_jobs >= COMMIT_MIN_JOBS
-    return n_jobs > 0 and resolve_backend(mode, n_jobs, device) == "cuda"
+    return n_jobs > 0 and _backend(mode, n_jobs, device) == "cuda"
 
 
 def bucket_size(n_jobs: int) -> int:
@@ -290,14 +318,18 @@ def find_alloc_batch(jobs: List, avail: np.ndarray, gamma: np.ndarray,
     gtypes = ps.cluster.gpu_types
     N = ps.n_node_rows
     R = len(gtypes)
-    tab = pricing_tables(jobs, avail, gamma, ps, now, utility,
-                         bucket_size(J))
+    B = bucket_size(J)
+    tab = pricing_tables(jobs, avail, gamma, ps, now, utility, B)
     jt, P, C = tab["jt"], tab["P"], tab["C"]
     Kj, pref, x_sorted, u_tab = jt.Kj, jt.pref, jt.x_sorted, jt.u_tab
     dev = resolve_device(ps.device)
     args = _to(dev, *(tab[k] for k in FIND_ALLOC_ARGS))
     if avail_dev is not None:
         args[0] = avail_dev
+    _ob = _obs.get()
+    if _ob.enabled:
+        _ob.count("solver_batch_calls")
+        _ob.kernel_shape((N, R, COMM_COST_FRAC, B, len(ps.keys), C))
     out = ops.find_alloc(*args, n_nodes=N, comm_frac=COMM_COST_FRAC,
                          wmax=tab["wmax"])
     (feasible, k_first, j_last, take, packed_cost, packed_payoff,
@@ -330,6 +362,31 @@ def find_alloc_batch(jobs: List, avail: np.ndarray, gamma: np.ndarray,
     results: List = [None] * J
     node_ids = [n.node_id for n in ps.cluster.nodes]
 
+    if _ob.enabled:
+        # runner-up provenance (repro_torch.obs.explain): masked second
+        # argmax over the same candidate axis — the per-job path's
+        # second-best tracking, first-maximum tie handling included
+        pay2 = pay.copy()
+        pay2[np.arange(J), win] = -np.inf
+        win2 = np.argmax(pay2, axis=1)
+        win2_pay = pay2[np.arange(J), win2]
+        k2, slot2 = np.divmod(win2, N + 1)
+
+        def _ru_of(j: int) -> Optional[dict]:
+            if not win2_pay[j] > -np.inf:
+                return None
+            s2 = int(slot2[j])
+            if s2 < N:
+                return {"kind": "pack", "node": node_ids[s2],
+                        "payoff": float(win2_pay[j])}
+            kp = int(k2[j]) + 1
+            return {"kind": "spread", "prefix": kp,
+                    "n_servers": int(sp_nserv[j, kp - 1]),
+                    "payoff": float(win2_pay[j])}
+    else:
+        def _ru_of(j: int) -> Optional[dict]:
+            return None
+
     pj = np.nonzero(is_pack)[0]
     if pj.size:
         hs = slot[pj]
@@ -349,7 +406,7 @@ def find_alloc_batch(jobs: List, avail: np.ndarray, gamma: np.ndarray,
             alloc = {(nid, gtypes[prefs[i][kk]]): int(tk[kk])
                      for kk in range(kjs[i]) if tk[kk] > 0}
             results[j] = Candidate(alloc, float(costs[i]), payoff,
-                                   float(rates[i]))
+                                   float(rates[i]), runner_up=_ru_of(j))
 
     for j in np.nonzero(found & (slot == N))[0].tolist():
         k = int(kb[j]) + 1                              # spread prefix k
@@ -373,7 +430,8 @@ def find_alloc_batch(jobs: List, avail: np.ndarray, gamma: np.ndarray,
             continue
         alloc = {ps.keys[m]: int(counts[m]) for m in ms}
         results[j] = Candidate(alloc, cost, payoff,
-                               float(x_sorted[j, jmax]))
+                               float(x_sorted[j, jmax]),
+                               runner_up=_ru_of(j))
     from repro_torch.analysis import invariants as _inv
     if _inv.sanitize_enabled():
         for job, cand in zip(jobs, results):
@@ -604,13 +662,27 @@ def _scan_commit(jobs: List, avail: np.ndarray, gamma: np.ndarray,
     if J == 0:
         return {}
     N = ps.n_node_rows
-    tab = scan_tables(jobs, avail, gamma, ps, now, utility, bucket_size(J))
+    B = bucket_size(J)
+    tab = scan_tables(jobs, avail, gamma, ps, now, utility, B)
     jt, C, P_tab, node_row = tab["jt"], tab["C"], tab["P_tab"], ps.node_row
+    _ob = _obs.get()
+    if _ob.enabled:
+        _ob.count("solver_scan_calls")
+        _ob.observe("solver.scan_jobs", J)
+        _ob.kernel_shape(("commit_scan", N, len(ps.cluster.gpu_types),
+                          COMM_COST_FRAC, B, len(ps.keys), C, tab["wmax"]))
     out = ops.commit_scan(
         *_to(resolve_device(ps.device), *(tab[k] for k in COMMIT_SCAN_ARGS)),
         n_nodes=N, comm_frac=COMM_COST_FRAC, wmax=tab["wmax"])
-    free_f, _, won, win, counts = (t.cpu().numpy() for t in out[:5])
+    # the runner-up outputs (win2, win2_pay, sp_nserv) reach the host only
+    # under an observer
+    want_ru = _ob.enabled
+    free_f, _, won, win, counts, *ru_out = (
+        t.cpu().numpy() for t in out[:8 if want_ru else 5])
+    if want_ru:
+        win2, win2_pay, sp_nserv = ru_out
 
+    node_ids = [n.node_id for n in ps.cluster.nodes]
     results: Dict = {}
     gam_run = np.asarray(gamma, dtype=np.int64).copy()
     for p in range(J):
@@ -619,6 +691,16 @@ def _scan_commit(jobs: List, avail: np.ndarray, gamma: np.ndarray,
         cnts = counts[p]
         ms = np.nonzero(cnts)[0]
         slotp = int(win[p]) % (N + 1)
+        ru = None
+        if want_ru and win2_pay[p] > -np.inf:
+            k2, s2 = divmod(int(win2[p]), N + 1)
+            if s2 < N:
+                ru = {"kind": "pack", "node": node_ids[s2],
+                      "payoff": float(win2_pay[p])}
+            else:
+                ru = {"kind": "spread", "prefix": k2 + 1,
+                      "n_servers": int(sp_nserv[p, k2]),
+                      "payoff": float(win2_pay[p])}
         jl = int(jt.rank[p, ms].max())      # slowest rank actually used
         if slotp < N:
             # consolidated: cost = sum over preference ranks of the key's
@@ -646,7 +728,8 @@ def _scan_commit(jobs: List, avail: np.ndarray, gamma: np.ndarray,
             alloc = {ps.keys[m]: int(cnts[m]) for m in ms}
         payoff = float(jt.u_tab[p, jl] - cost)
         results[jobs[p].job_id] = Candidate(alloc, float(cost), payoff,
-                                            float(jt.x_sorted[p, jl]))
+                                            float(jt.x_sorted[p, jl]),
+                                            runner_up=ru)
         gam_run[ms] += cnts[ms]
 
     total = counts[:J].sum(axis=0)
@@ -681,8 +764,14 @@ def commit_greedy(queue: List, avail: np.ndarray, gamma: np.ndarray,
     remainder runs through one K5 launch.  Mutates ``avail``/``gamma`` in
     place and returns ``{job_id: Candidate}`` bit-identical to the
     sequential NumPy loop (``repro_torch.core.dp``)."""
+    _ob = _obs.get()
+    b_us = _ob.begin() if _ob.enabled else 0.0
     cands, det = find_alloc_batch(queue, avail, gamma, ps, now, utility,
                                   avail_dev=avail_dev, details=True)
+    if _ob.enabled:
+        _ob.end("solver_dispatch", b_us, backend="cuda",
+                queue_len=len(queue), bucket=bucket_size(len(queue)),
+                candidates=sum(1 for c in cands if c is not None))
     # payoff *density* order (per requested device), ties in queue order
     # — identical to the sequential loop's sort
     dens = [(c.payoff / max(1, j.n_workers), i)
@@ -695,6 +784,9 @@ def commit_greedy(queue: List, avail: np.ndarray, gamma: np.ndarray,
     while rows:
         accepted, consumed, tv = _wave_accepts(det, cands, rows,
                                                key_index)
+        if _ob.enabled:
+            _ob.count("solver.commit_waves")
+            _ob.observe("solver.wave_size", consumed)
         for r, c in accepted:
             chosen[cur_jobs[r].job_id] = c
         if tv.any():
@@ -710,8 +802,13 @@ def commit_greedy(queue: List, avail: np.ndarray, gamma: np.ndarray,
             chosen.update(_scan_commit(rest, avail, gamma, ps, now,
                                        utility))
             break
+        b_us = _ob.begin() if _ob.enabled else 0.0
         cands, det = find_alloc_batch(rest, avail, gamma, ps, now,
                                       utility, details=True)
+        if _ob.enabled:
+            _ob.end("solver_dispatch", b_us, backend="cuda",
+                    queue_len=len(rest), bucket=bucket_size(len(rest)),
+                    candidates=sum(1 for c in cands if c is not None))
         cur_jobs = rest
         rows = list(range(len(rest)))
     return chosen

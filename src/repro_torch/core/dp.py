@@ -1,8 +1,9 @@
 """Algorithm 2: DP_allocation + FIND_ALLOC — the dual subroutine.
 
-The port's copy of ``repro.core.dp``, without the observability hooks;
-``dp_allocation(sanitize=)`` checks each selection with the runtime
-sanitizer (``repro_torch.analysis.invariants``).  FIND_ALLOC builds
+The port's copy of ``repro.core.dp``, with its observability hooks
+(``repro_torch.obs``: the runner-up of each candidate and the
+``solver_dispatch`` span); ``dp_allocation(sanitize=)`` checks each
+selection with the runtime sanitizer (``repro_torch.analysis.invariants``).  FIND_ALLOC builds
 candidate task-level allocations for one job:
   * consolidated — pack all W_j tasks on the fewest servers, preferring
     GPU types with the highest X_j^r;
@@ -33,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs as _obs
 from repro_torch.core.pricing import PriceState
 from repro_torch.core.types import Alloc, Job
 from repro_torch.core.utility import UtilityFn
@@ -48,6 +50,12 @@ class Candidate:
     cost: float
     payoff: float
     rate: float      # bottleneck iterations/sec (x_j)
+    # allocation provenance (repro_torch.obs): the second-best candidate
+    # in the FIND_ALLOC enumeration and its payoff.  Populated only while
+    # an observer is installed; excluded from equality/repr so it can
+    # never participate in a decision comparison.
+    runner_up: Optional[dict] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
 
 def find_alloc(job: Job, free: Optional[Dict[Tuple[int, str], int]],
@@ -162,25 +170,54 @@ def _find_alloc_arrays(job: Job, avail: np.ndarray, gamma: np.ndarray,
 
     # ---- pick the best candidate, in the reference enumeration order ---
     # (per fastest-type prefix: consolidated nodes in node order, then the
-    # prefix's spread candidate; first maximum wins on ties)
+    # prefix's spread candidate; first maximum wins on ties).  Runner-up
+    # tracking (want_ru) is provenance-only: it observes the same scan
+    # without touching the winner comparison, so decisions are identical
+    # with observability on or off.
+    want_ru = _obs.get().enabled
     best_payoff = -np.inf
     best = None                      # ("pack", node_row) | ("spread", k)
+    ru_payoff = -np.inf
+    ru = None
     for k in range(1, K + 1):
         for h in np.nonzero(feasible & (k_first == k - 1))[0]:
             p = packed_payoff[h]
             if p > best_payoff:
+                if want_ru:
+                    ru_payoff, ru = best_payoff, best
                 best_payoff = float(p)
                 best = ("pack", int(h))
+            elif want_ru and p > ru_payoff:
+                ru_payoff = float(p)
+                ru = ("pack", int(h))
         if spread[k] is not None:
             p = spread[k][0]
             if p > best_payoff:
+                if want_ru:
+                    ru_payoff, ru = best_payoff, best
                 best_payoff = float(p)
                 best = ("spread", k)
+            elif want_ru and p > ru_payoff:
+                ru_payoff = float(p)
+                ru = ("spread", k)
 
     if best is None:
         return None
     if best_payoff <= 0 and not force:  # mu_j <= 0 -> reject (lines 29-33)
         return None
+
+    ru_info = None
+    if want_ru and ru is not None:
+        if ru[0] == "pack":
+            ru_info = {"kind": "pack",
+                       "node": ps.cluster.nodes[ru[1]].node_id,
+                       "payoff": float(ru_payoff)}
+        else:
+            keys_ru = spread[ru[1]][3]
+            ru_info = {"kind": "spread", "prefix": ru[1],
+                       "n_servers": int(np.unique(
+                           ps.node_row[keys_ru]).size),
+                       "payoff": float(ru_payoff)}
 
     if best[0] == "pack":
         h = best[1]
@@ -188,13 +225,13 @@ def _find_alloc_arrays(job: Job, avail: np.ndarray, gamma: np.ndarray,
         alloc: Alloc = {(node_id, types[j]): int(take[h, j])
                         for j in range(K) if take[h, j] > 0}
         return Candidate(alloc, float(packed_cost[h]), best_payoff,
-                         float(x_types[j_last[h]]))
+                         float(x_types[j_last[h]]), runner_up=ru_info)
     _, cost2, jmax, keys_m = spread[best[1]]
     counts = np.bincount(keys_m, minlength=len(ps.keys))
     alloc2: Alloc = {ps.keys[m]: int(c)
                      for m, c in enumerate(counts) if c}
     return Candidate(alloc2, float(cost2), best_payoff,
-                     float(x_types[jmax]))
+                     float(x_types[jmax]), runner_up=ru_info)
 
 
 def _scan_standalone(queue: List[Job], avail0: np.ndarray,
@@ -205,12 +242,23 @@ def _scan_standalone(queue: List[Job], avail0: np.ndarray,
     one launch of K4 on the card, a per-job loop otherwise."""
     from repro_torch.core import batch_solver as bs
 
-    if bs.use_batch(solver, len(queue), ps.device):
+    _ob = _obs.get()
+    batched = bs.use_batch(solver, len(queue), ps.device)
+    b_us = _ob.begin() if _ob.enabled else 0.0
+    if batched:
         dev = ps.device_view("free") if free_is_ps else None
-        return bs.find_alloc_batch(queue, avail0, gamma0, ps, now, utility,
-                                   avail_dev=dev)
-    return [_find_alloc_arrays(j, avail0, gamma0, ps, now, utility,
-                               force=False) for j in queue]
+        out = bs.find_alloc_batch(queue, avail0, gamma0, ps, now, utility,
+                                  avail_dev=dev)
+    else:
+        out = [_find_alloc_arrays(j, avail0, gamma0, ps, now, utility,
+                                  force=False) for j in queue]
+    if _ob.enabled:
+        _ob.end("solver_dispatch", b_us,
+                backend="cuda" if batched else "numpy",
+                queue_len=len(queue),
+                bucket=bs.bucket_size(len(queue)) if batched else None,
+                candidates=sum(1 for c in out if c is not None))
+    return out
 
 
 def _sanitize_selection(sel: Dict[int, "Candidate"], queue: List[Job],

@@ -1,17 +1,18 @@
 """Hadar (Algorithm 1): round-based primal-dual scheduling with the
 DP dual subroutine (Algorithm 2) for task-level heterogeneous allocation.
 
-The port's copy of ``repro.core.hadar``, without the observability hooks
-(the kept branches are those the JAX package runs with observability
-off).  Running jobs keep their allocations and only the waiting queue is
-allocated against the residual capacity; a full re-optimization (which
-may preempt) happens when resources were freed by completions.
+The port's copy of ``repro.core.hadar``, with its observability hooks
+(``repro_torch.obs``: the ``hadar.dp`` span, the decision log and the
+free-capacity gauges).  Running jobs keep their allocations and only the
+waiting queue is allocated against the residual capacity; a full
+re-optimization (which may preempt) happens when resources were freed by
+completions.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, List
 
+from repro_torch import obs as _obs
 from repro_torch.core import batch_solver
 from repro_torch.core.dp import Candidate, _find_alloc_arrays, \
     dp_allocation
@@ -40,7 +41,7 @@ class HadarScheduler(Scheduler):
         asks for the CPU, where their plain versions run.  "cuda" raises
         ``RuntimeError`` where CUDA is absent and no CPU device is
         given."""
-        batch_solver.resolve_backend(solver, 0, device)
+        batch_solver.check_backend(solver, device)
         self.horizon = horizon
         self.utility = utility
         self.reallocate_on_free = reallocate_on_free
@@ -61,8 +62,27 @@ class HadarScheduler(Scheduler):
     def note_completion(self) -> None:
         self._had_completion = True
 
+    def _log_decision(self, ob, now, job, cand, ps, phase) -> None:
+        """Allocation provenance (repro_torch.obs.explain): record the
+        winning keys with their Eq. 5 marginal unit prices *at the
+        pre-commit gamma* plus the inputs the price was derived from, so
+        each log line re-derives exactly against ``PriceState.price``."""
+        rows = []
+        for (node, gtype), count in cand.alloc.items():
+            key = (node, gtype)
+            cap = ps._cap_by_key.get(key, 0)
+            rows.append({
+                "node": node, "type": gtype, "count": int(count),
+                "unit_price": ps.price(node, gtype, cap),
+                "gamma": int(ps.gamma.get(key, 0)), "cap": int(cap),
+                "u_min": ps.u_min[gtype], "u_max": ps.u_max[gtype]})
+        ob.decision(_obs.decision_record(
+            now, job.job_id, job.n_workers, phase, self.solver, rows,
+            cand.cost, cand.payoff, cand.rate, cand.runner_up))
+
     def schedule(self, now, round_len, jobs, cluster):
-        t0 = time.perf_counter()
+        _ob = _obs.get()
+        sw = _obs.StopWatch().start()
         active = [j for j in jobs if not j.is_done() and j.arrival <= now]
         out: Dict[int, Alloc] = {}
 
@@ -92,16 +112,29 @@ class HadarScheduler(Scheduler):
             out[j.job_id] = j.alloc
         ps.commit_batch(j.alloc for j in kept)
 
+        b_us = _ob.begin() if _ob.enabled else 0.0
         sel = dp_allocation(queue, None, ps, now, self.utility,
                             max_exact=self.max_exact_dp,
                             solver=self.solver)
+        if _ob.enabled:
+            _ob.end("hadar.dp", b_us, t=now, queue_len=len(queue),
+                    selected=len(sel), full_pass=full_pass)
+            by_id = {j.job_id: j for j in queue}
         self.last_decisions = dict(sel)
         extra: Dict = {}
         for jid, cand in sel.items():
             out[jid] = cand.alloc
             for k, v in cand.alloc.items():
                 extra[k] = extra.get(k, 0) + v
-        ps.commit_batch(cand.alloc for cand in sel.values())
+        if _ob.enabled:
+            # decision provenance snapshots each winner's Eq. 5 prices
+            # at its *pre-commit* gamma, so the obs path keeps the
+            # sequential log-then-commit interleaving
+            for jid, cand in sel.items():
+                self._log_decision(_ob, now, by_id[jid], cand, ps, "dp")
+                ps.commit(cand.alloc)
+        else:
+            ps.commit_batch(cand.alloc for cand in sel.values())
 
         if self.work_conserving:
             # backfill: waiting jobs onto idle devices, best payoff first.
@@ -123,9 +156,13 @@ class HadarScheduler(Scheduler):
                     continue
                 out[j.job_id] = cand.alloc
                 self.last_decisions[j.job_id] = cand
+                if _ob.enabled:
+                    self._log_decision(_ob, now, j, cand, ps, "backfill")
                 ps.commit(cand.alloc)
                 for k, v in cand.alloc.items():
                     extra[k] = extra.get(k, 0) + v
 
-        self.last_sched_seconds = time.perf_counter() - t0
+        self.last_sched_seconds = sw.stop()
+        if _ob.enabled:
+            _ob.free_capacity(ps.keys, ps.free_arr)
         return out

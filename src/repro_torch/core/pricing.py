@@ -7,8 +7,10 @@ exponentially to U_max as the server fills, blocking low-utility jobs.
 alpha = max_r(1, ln(Umax/Umin)) gives the 2*alpha competitive bound
 (Theorem 2).
 
-The port's copy of ``repro.core.pricing``, with the observability hooks
-left out (they only record).  The sanitizer's checks
+The port's copy of ``repro.core.pricing``, with its observability hooks
+(``repro_torch.obs``: the ``pricestate.refresh`` span, ``price_op`` on
+``commit``, ``commit_batch`` and ``release``; they only record).  The
+sanitizer's checks
 (``repro_torch.analysis.invariants``, ``sanitize=`` or
 ``REPRO_SANITIZE``) run after ``__init__``, ``refresh``, ``commit``,
 ``commit_batch`` and ``release``; off, each costs one bool test.  Every
@@ -27,6 +29,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.analysis import invariants as _inv
 from repro_torch.core.types import Cluster, Job
 from repro_torch.core.utility import UtilityFn, effective_throughput
@@ -226,6 +229,8 @@ class PriceState:
         utility, now)`` but without rebuilding the key arrays: U-bounds
         are recomputed for the new active set, gamma and the free vector
         reset, and every array object keeps its identity."""
+        _ob = _obs.get()
+        b_us = _ob.begin() if _ob.enabled else 0.0
         self.u_max.clear()
         self.u_min.clear()
         self._compute_bounds(jobs, now)
@@ -240,6 +245,9 @@ class PriceState:
         self.free_arr[:] = self.cap_arr
         self._conserved = True              # clean slate: gamma+free==cap
         self._touch("umin", "umax", "q", "free")
+        if _ob.enabled:
+            _ob.end("pricestate.refresh", b_us, jobs=len(jobs), now=now)
+            _ob.count("pricestate_refreshes")
         if self._sanitize:
             _inv.check_price_state(self, "after refresh")
 
@@ -289,6 +297,9 @@ class PriceState:
             _inv.check_price_state(self, f"after {op}")
 
     def commit(self, alloc: Dict[Tuple[int, str], int]) -> None:
+        _ob = _obs.get()
+        if _ob.enabled:
+            _ob.price_op("commit", len(alloc))
         self._apply(alloc, "commit")
 
     def commit_batch(self, allocs) -> None:
@@ -299,6 +310,10 @@ class PriceState:
         allocs = [a for a in allocs if a]
         if not allocs:
             return
+        _ob = _obs.get()
+        if _ob.enabled:
+            _ob.price_op("commit_batch", sum(len(a) for a in allocs))
+            _ob.observe("pricing.commit_batch_size", len(allocs))
         total: Dict[Tuple[int, str], int] = {}
         for alloc in allocs:
             for key, c in alloc.items():
@@ -306,6 +321,9 @@ class PriceState:
         self._apply(total, "commit_batch")
 
     def release(self, alloc: Dict[Tuple[int, str], int]) -> None:
+        _ob = _obs.get()
+        if _ob.enabled:
+            _ob.price_op("release", len(alloc))
         if self._sanitize:
             _inv.check_commit_amounts(self, alloc, "release")
             if self._conserved:

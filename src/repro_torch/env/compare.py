@@ -5,8 +5,9 @@ the JAX package's (``repro.env.compare/v1``): it names the format, so a
 table from either package validates with either validator.  The device
 is explicit: ``run_one``/``compare`` take ``device=`` (None means the
 card, and raises ``RuntimeError`` without CUDA unless the caller passes
-``device="cpu"``); Hadar and HadarE build their scheduler on it.  The
-JAX package's ``compare.policy`` observability span is not ported yet.
+``device="cpu"``); Hadar and HadarE build their scheduler on it.  Under
+an observer (``repro_torch.obs``) each policy's run is a
+``compare.policy`` wall span.
 
 Runs a set of policies — Hadar, Gavel, HadarE, the classic baselines
 (FCFS / SJF / SRTF, oracle and predicted, max-min share), Tiresias,
@@ -28,7 +29,8 @@ CLI::
 
 ``--policies`` narrows the zoo (comma-separated); ``--faults`` injects
 a failure-trace CSV; ``--device`` (default ``cuda``) is where Hadar's
-kernels run; ``REPRO_SANITIZE=1`` passes through to the engines.
+kernels run; ``REPRO_SANITIZE=1`` / ``REPRO_OBS=1`` pass through to the
+engines.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import argparse
 import json
 from typing import Callable, Dict, List, Optional
 
+from repro_torch import obs as _obs
 from repro_torch.core.types import Cluster, Job, clone_jobs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.env.baselines import (FCFSScheduler, MaxMinShareScheduler,
@@ -124,20 +127,28 @@ def run_one(name: str, jobs: List[Job], cluster: Cluster,
         raise ValueError(f"unknown policy {name!r}; choose from "
                          f"{sorted(POLICIES)}")
     run_jobs = clone_jobs(jobs)
+    ob = _obs.get()
+    b_us = ob.begin() if ob.enabled else 0.0
     if name == "hadare":
         from repro_torch.sim.adapters import simulate_hadare
-        return simulate_hadare(run_jobs, cluster, round_len=round_len,
-                               faults=faults, solver=solver,
-                               sanitize=sanitize,
-                               scheduler=_make_hadar(device),
-                               **{k: v for k, v in kw.items()
-                                  if k in ("max_rounds", "n_copies",
-                                           "sync_overhead")})
-    from repro_torch.sim.adapters import run as run_engine
-    sched = _make_hadar(device) if name == "hadar" else POLICIES[name]()
-    return run_engine(sched, run_jobs, cluster, mode=mode,
-                      round_len=round_len, faults=faults, solver=solver,
-                      sanitize=sanitize, **kw)
+        res = simulate_hadare(run_jobs, cluster, round_len=round_len,
+                              faults=faults, solver=solver,
+                              sanitize=sanitize,
+                              scheduler=_make_hadar(device),
+                              **{k: v for k, v in kw.items()
+                                 if k in ("max_rounds", "n_copies",
+                                          "sync_overhead")})
+    else:
+        from repro_torch.sim.adapters import run as run_engine
+        sched = _make_hadar(device) if name == "hadar" \
+            else POLICIES[name]()
+        res = run_engine(sched, run_jobs, cluster, mode=mode,
+                         round_len=round_len, faults=faults, solver=solver,
+                         sanitize=sanitize, **kw)
+    if ob.enabled:
+        ob.end("compare.policy", b_us, policy=name, mode=mode,
+               ttd=res.total_seconds, evictions=res.evictions)
+    return res
 
 
 def compare(jobs: List[Job], cluster: Cluster,

@@ -94,9 +94,15 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``'s library."""
+    """Build (if needed) and load ``csrc/<name>.cu``'s library; an
+    observer (``repro_torch.obs``) counts each first load in the process
+    (``kernel_builds``)."""
     lib = _LOADED.get(name)
     if lib is None:
+        from repro_torch import obs as _obs
+        _ob = _obs.get()
+        if _ob.enabled:       # process-global cache: 0 in warm processes
+            _ob.count("kernel_builds")
         path = build_all([name])[name]
         lib = _LOADED[name] = ctypes.CDLL(str(path))
     return lib

@@ -1,8 +1,9 @@
 """Backends that plug schedulers and HadarE into the simulation engines.
 
-The port's copy of ``repro.sim.adapters``, without the observability hooks
-(the kept branches are those the JAX package runs with observability
-off).  A consultation is timed with ``time.perf_counter()``.
+The port's copy of ``repro.sim.adapters``, with its observability hooks
+(``repro_torch.obs``: each HadarE consultation timed by ``obs.consult``,
+faults, evictions, completions, intervals, fast-forwards and the
+``hadare.consolidation`` instant after each sibling dedupe).
 ``simulate_hadare(sanitize=)`` checks the paper's invariants every round
 (``repro_torch.analysis.invariants``).
 
@@ -27,11 +28,11 @@ independent simulation.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import obs as _obs
 from repro_torch.core.schedulers import Scheduler
 from repro_torch.core.types import Cluster, Job, alloc_nodes, alloc_size
 from repro_torch.analysis import invariants as _inv
@@ -39,7 +40,7 @@ from repro_torch.sim.engine import (RESTART_PENALTY, _alloc_equal,
                                     _apply_solver, _cap_by_key,
                                     _job_penalty, _reset_jobs,
                                     simulate_events, simulate_rounds)
-from repro_torch.sim.faults import FaultState, resolve_faults, \
+from repro_torch.sim.faults import KIND_SPOT, FaultState, resolve_faults, \
     select_evictions
 from repro_torch.sim.metrics import RoundRecord, SimResult
 
@@ -73,9 +74,11 @@ class CountingScheduler(Scheduler):
             self.inner.note_completion()
 
     def schedule(self, now, round_len, jobs, cluster):
-        t0 = time.perf_counter()
+        # plain StopWatch (not obs.consult): the engine already owns the
+        # decision-latency histogram; a second timer here would double-count
+        sw = _obs.StopWatch().start()
         out = self.inner.schedule(now, round_len, jobs, cluster)
-        self.total_seconds += time.perf_counter() - t0
+        self.total_seconds += sw.stop()
         self.calls += 1
         return out
 
@@ -125,6 +128,7 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
 
     sched = scheduler or HadarScheduler()
     _apply_solver(sched, solver)
+    _ob = _obs.get()
     _san = _inv.sanitize_enabled(sanitize)
     cap = _cap_by_key(cluster) if _san else None
     parents = sorted(jobs, key=lambda j: (j.arrival, j.job_id))
@@ -187,8 +191,25 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
         live = [c for c in all_copies if not c.is_done()]
         avail_gpus, avail_nodes = total_gpus, n_nodes
         if fs is not None:
+            prev_down = set(fs.down)
             if fs.advance_to(t):
-                for c in select_evictions(live, fs.live_capacity()):
+                if _ob.enabled:
+                    for h in sorted(fs.down - prev_down):
+                        win = fs.active_window(h, t)
+                        _ob.fault("spot_preempt" if win is not None
+                                  and win.kind == KIND_SPOT
+                                  else "node_fail", t, h,
+                                  win.recover_time if win else None)
+                    for h in sorted(prev_down - fs.down):
+                        _ob.fault("node_recover", t, h)
+                victims = select_evictions(live, fs.live_capacity())
+                for rank, c in enumerate(victims):
+                    if _ob.enabled:
+                        _ob.eviction(_obs.eviction_record(
+                            t, c.job_id, c.n_workers, "capacity",
+                            alloc_nodes(c.alloc), 0.0, 0.0,
+                            c.bottleneck_rate(c.alloc)
+                            * alloc_size(c.alloc), rank))
                     c.alloc = None
                     c.evictions += 1
                     pi, _ci = pos[c.job_id]
@@ -199,16 +220,22 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
                     _inv.check_down_allocs(live, fs.down, t, "hadare")
             avail_gpus, avail_nodes = fs.up_counts()
         view = fs.view() if fs is not None else cluster
-        # the consult covers schedule + sibling dedupe, matching the
-        # seed's sched_seconds accounting
+        qlen = (sum(1 for c in live if c.alloc is None)
+                if _ob.enabled else 0)
+        # the consult covers schedule + sibling dedupe
         if view.nodes:
-            t0 = time.perf_counter()
-            desired = sched.schedule(t, round_len, live, view)
-            desired = _dedupe_siblings(desired, live, by_id)
-            sched_s = time.perf_counter() - t0
+            with _ob.consult("hadare", sched.name, t, qlen) as sw:
+                desired = sched.schedule(t, round_len, live, view)
+                n_raw = len(desired) if _ob.enabled else 0
+                desired = _dedupe_siblings(desired, live, by_id)
+            sched_s = sw.seconds
         else:
             desired = {}                # total outage
+            n_raw = 0
             sched_s = 0.0
+        if _ob.enabled:
+            _ob.sim_instant("hadare.consolidation", t, raw=n_raw,
+                            kept=len(desired), copies=len(live))
 
         changed = 0
         busy_nodes: set = set()
@@ -266,6 +293,9 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
             fin_used = (float(need[i] / rate_sum[i]) if rate_sum[i] > 0.0
                         else round_len)
             parents[i].finish_time = t + min(round_len, fin_used)
+            if _ob.enabled:
+                _ob.completion(parents[i].finish_time, parents[i].job_id,
+                               parents[i].finish_time - parents[i].arrival)
             for c in copy_objs[i]:
                 c.alloc = None
         if bool(finished.any()):
@@ -303,6 +333,10 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
             sched_seconds=sched_s))
         busy_total += busy_gpu_time
         avail_total += avail_gpus * round_len
+        if _ob.enabled:
+            r = rounds[-1]
+            _ob.interval("hadare", r.t, round_len, r.gru, r.cru,
+                         r.running, r.waiting, r.changed)
         if _san:
             _inv.check_utilization(rounds[-1].gru, rounds[-1].cru, t,
                                    "hadare")
@@ -365,6 +399,9 @@ def simulate_hadare(jobs: List[Job], cluster: Cluster,
                 steady, t=t + i * round_len, sched_seconds=0.0))
         busy_total += busy_gpu_time * skip
         avail_total += avail_gpus * round_len * skip
+        if _ob.enabled:
+            _ob.sim_span("fast_forward", t, t + skip * round_len,
+                         rounds=skip, engine="hadare")
         t += skip * round_len
         rnd += skip
 

@@ -1,8 +1,9 @@
 """Simulation engines: round-quantized (paper §IV) and continuous-time.
 
-The port's copy of ``repro.sim.engine``, without the observability hooks
-(the kept branches are those the JAX package runs with observability
-off).  A consultation is timed with ``time.perf_counter()``.
+The port's copy of ``repro.sim.engine``, with its observability hooks
+(``repro_torch.obs``: each consultation timed by ``obs.consult``, faults,
+evictions with their provenance records, completions, the round engine's
+intervals and fast-forwards, the event engine's queue pops).
 ``sanitize=`` (default: the ``REPRO_SANITIZE`` flag) checks the paper's
 invariants after every decision (``repro_torch.analysis.invariants``).
 
@@ -41,9 +42,9 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import math
-import time
 from typing import Dict, List, Optional, Set
 
+from repro_torch import obs as _obs
 from repro_torch.analysis import invariants as _inv
 from repro_torch.core.types import Alloc, Cluster, Job, alloc_nodes, \
     alloc_size
@@ -128,6 +129,7 @@ def simulate_rounds(scheduler, jobs: List[Job], cluster: Cluster,
     de-facto checkpoint) — only the fault-restart penalty counts
     against goodput."""
     _apply_solver(scheduler, solver)
+    _ob = _obs.get()
     _san = _inv.sanitize_enabled(sanitize)
     cap = _cap_by_key(cluster) if _san else None
     prev_done: Dict[int, float] = {}
@@ -149,8 +151,24 @@ def simulate_rounds(scheduler, jobs: List[Job], cluster: Cluster,
             break
         avail_gpus, avail_nodes = total_gpus, n_nodes
         if fs is not None:
+            prev_down = set(fs.down)
             if fs.advance_to(t):
-                for j in select_evictions(jobs, fs.live_capacity()):
+                if _ob.enabled:
+                    for h in sorted(fs.down - prev_down):
+                        w = fs.active_window(h, t)
+                        _ob.fault("spot_preempt" if w is not None
+                                  and w.kind == KIND_SPOT else "node_fail",
+                                  t, h, w.recover_time if w else None)
+                    for h in sorted(prev_down - fs.down):
+                        _ob.fault("node_recover", t, h)
+                victims = select_evictions(jobs, fs.live_capacity())
+                for rank, j in enumerate(victims):
+                    if _ob.enabled:
+                        _ob.eviction(_obs.eviction_record(
+                            t, j.job_id, j.n_workers, "capacity",
+                            alloc_nodes(j.alloc), 0.0, 0.0,
+                            j.bottleneck_rate(j.alloc)
+                            * alloc_size(j.alloc), rank))
                     j.alloc = None
                     j.evictions += 1
                     ev_total += 1
@@ -158,11 +176,14 @@ def simulate_rounds(scheduler, jobs: List[Job], cluster: Cluster,
                 if _san:
                     _inv.check_down_allocs(jobs, fs.down, t, "rounds")
             avail_gpus, avail_nodes = fs.up_counts()
+        qlen = (sum(1 for j in jobs if not j.is_done()
+                    and j.arrival <= t and not j.alloc)
+                if _ob.enabled else 0)
         view = fs.view() if fs is not None else cluster
         if view.nodes:
-            t0 = time.perf_counter()
-            desired = scheduler.schedule(t, round_len, jobs, view)
-            sched_s = time.perf_counter() - t0
+            with _ob.consult("rounds", scheduler.name, t, qlen) as sw:
+                desired = scheduler.schedule(t, round_len, jobs, view)
+            sched_s = sw.seconds
         else:
             desired = {}            # total outage: nothing schedulable
             sched_s = 0.0
@@ -201,6 +222,9 @@ def simulate_rounds(scheduler, jobs: List[Job], cluster: Cluster,
                 used = penalty + need / (rate * w)
                 j.done_iters = j.total_iters
                 j.finish_time = t + used
+                if _ob.enabled:
+                    _ob.completion(j.finish_time, j.job_id,
+                                   j.finish_time - j.arrival)
                 any_completed = True
                 busy_gpu_time += w * used
                 busy_nodes.update(alloc_nodes(new))
@@ -229,6 +253,10 @@ def simulate_rounds(scheduler, jobs: List[Job], cluster: Cluster,
             sched_seconds=sched_s))
         busy_total += busy_gpu_time
         avail_total += avail_gpus * round_len
+        if _ob.enabled:
+            r = rounds[-1]
+            _ob.interval("rounds", r.t, round_len, r.gru, r.cru,
+                         r.running, r.waiting, r.changed)
         if _san:
             _check_state(jobs, cap, t, "rounds", prev_done)
             _inv.check_utilization(rounds[-1].gru, rounds[-1].cru, t,
@@ -286,6 +314,9 @@ def simulate_rounds(scheduler, jobs: List[Job], cluster: Cluster,
                 steady, t=t + i * round_len, sched_seconds=0.0))
         busy_total += busy_gpu_time * skip
         avail_total += avail_gpus * round_len * skip
+        if _ob.enabled:
+            _ob.sim_span("fast_forward", t, t + skip * round_len,
+                         rounds=skip, engine="rounds")
         t += skip * round_len
         rnd += skip
 
@@ -371,6 +402,7 @@ def event_stream(jobs: List[Job], cluster: Cluster,
 
     Returns the result via ``StopIteration.value``.
     """
+    _ob = _obs.get()
     _san = _inv.sanitize_enabled(sanitize)
     cap = _cap_by_key(cluster) if _san else None
     prev_done: Dict[int, float] = {}
@@ -450,7 +482,13 @@ def event_stream(jobs: List[Job], cluster: Cluster,
                                 open_changed, open_sched_s)
 
     while q and n_events < max_events:
-        batch = q.pop_batch()
+        if _ob.enabled:
+            b_us = _ob.begin()
+            batch = q.pop_batch()
+            _ob.end("event_pop", b_us, n=len(batch),
+                    t=batch[0].time if batch else None)
+        else:
+            batch = q.pop_batch()
         if not batch:
             break
         t_new = batch[0].time
@@ -464,6 +502,7 @@ def event_stream(jobs: List[Job], cluster: Cluster,
         fault_hit = False
         cap_changed = False
         fault_only = all(ev.kind in FAULT_KINDS for ev in batch)
+        fail_kind: Dict[int, str] = {}   # node failed this batch -> reason
         for ev in batch:
             n_events += 1
             if ev.kind == EventKind.COMPLETION:
@@ -476,17 +515,29 @@ def event_stream(jobs: List[Job], cluster: Cluster,
                 j.done_iters = j.total_iters
                 j.finish_time = t
                 j.alloc = None
+                if _ob.enabled:
+                    _ob.completion(t, j.job_id, t - j.arrival)
                 completed_since.append(j.job_id)
             elif ev.kind == EventKind.NODE_RECOVER:
                 fs.recover(ev.node_id)
                 cap_changed = True
+                if _ob.enabled:
+                    _ob.fault("node_recover", t, ev.node_id)
             elif ev.kind in (EventKind.NODE_FAIL, EventKind.SPOT_PREEMPT):
+                reason = ("spot_preempt"
+                          if ev.kind == EventKind.SPOT_PREEMPT
+                          else "node_fail")
                 fs.fail(ev.node_id)
                 fault_hit = True
                 cap_changed = True
+                fail_kind[ev.node_id] = reason
+                if _ob.enabled:
+                    _ob.fault(reason, t, ev.node_id,
+                              fs.recover_time(ev.node_id, t))
 
         if fault_hit:
-            for j in select_evictions(jobs, fs.live_capacity()):
+            victims = select_evictions(jobs, fs.live_capacity())
+            for rank, j in enumerate(victims):
                 w = alloc_size(j.alloc)
                 rate_w = j.bottleneck_rate(j.alloc) * w
                 run_s = t - prog_start.get(j.job_id, t)
@@ -495,6 +546,13 @@ def event_stream(jobs: List[Job], cluster: Cluster,
                     j.done_iters, rate_w, run_s, ckpt)
                 lost = max(0.0, j.done_iters - retained)
                 lost_gpu = (lost / rate_w) * w if rate_w > 0 else 0.0
+                if _ob.enabled:
+                    ev_nodes = alloc_nodes(j.alloc)
+                    # direct victims sit on a node that failed this
+                    # batch; the rest were shed to fit the shrunken
+                    # capacity
+                    reason = next((fail_kind[h] for h in ev_nodes
+                                   if h in fail_kind), "capacity")
                 j.done_iters = retained
                 j.lost_iters += lost
                 j.evictions += 1
@@ -508,6 +566,10 @@ def event_stream(jobs: List[Job], cluster: Cluster,
                     # rollback legitimately decreases done_iters; move
                     # the progress-monotonicity floor with it
                     prev_done[j.job_id] = float(j.done_iters)
+                if _ob.enabled:
+                    _ob.eviction(_obs.eviction_record(
+                        t, j.job_id, j.n_workers, reason, ev_nodes,
+                        lost, lost_gpu, rate_w, rank))
             if _san:
                 _inv.check_down_allocs(jobs, fs.down, t, "events")
         if cap_changed:
@@ -634,6 +696,7 @@ def simulate_events(scheduler, jobs: List[Job], cluster: Cluster,
     makes decisions against byte-identical state.
     """
     _apply_solver(scheduler, solver)
+    _ob = _obs.get()
     gen = event_stream(jobs, cluster, round_len=round_len,
                        max_events=max_events,
                        restart_penalty=restart_penalty,
@@ -650,6 +713,8 @@ def simulate_events(scheduler, jobs: List[Job], cluster: Cluster,
             return stop.value
         if cp.completed and hasattr(scheduler, "note_completion"):
             scheduler.note_completion()
-        t0 = time.perf_counter()
-        desired = scheduler.schedule(cp.t, cp.round_len, cp.jobs, cp.view)
-        send = (desired, time.perf_counter() - t0)
+        with _ob.consult("events", scheduler.name, cp.t,
+                         cp.queue_len) as sw:
+            desired = scheduler.schedule(cp.t, cp.round_len, cp.jobs,
+                                         cp.view)
+        send = (desired, sw.seconds)

@@ -1,9 +1,10 @@
 """Simulation metrics: per-round / per-interval records and results.
 
-The port's copy of ``repro.sim.metrics``, without the observability
-hooks.  The continuous-time engine records *intervals* — the
-spans between consecutive events — instead of fixed rounds;
-:class:`IntervalRecord` adds the interval length ``dt`` and
+The port's copy of ``repro.sim.metrics``, with its observability hook
+(each closed interval reported to ``repro_torch.obs``).  The
+continuous-time engine records *intervals* — the spans between
+consecutive events — instead of fixed rounds; :class:`IntervalRecord`
+adds the interval length ``dt`` and
 :class:`EventSimResult` reweights GRU/CRU by time so sparse traces
 (where intervals have wildly different lengths) are averaged fairly.
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Set
 
+from repro_torch import obs as _obs
 from repro_torch.core.types import Job
 
 
@@ -204,6 +206,12 @@ class MetricsRecorder:
                 _inv.check_monotonic(t0, self.records[-1].t, "events",
                                      "interval start")
         self.records.append(rec)
+        # hooked at the recorder so trace "interval" spans carry the
+        # IntervalRecord's own (t, dt) — boundaries match bitwise
+        _ob = _obs.get()
+        if _ob.enabled:
+            _ob.interval("events", t0, dt, rec.gru, rec.cru,
+                         running, waiting, changed)
 
     def result(self, name: str, jobs: List[Job], total_seconds: float,
                n_events: int, sched_calls: int) -> EventSimResult:

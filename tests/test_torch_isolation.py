@@ -1,8 +1,9 @@
 """The port stands alone: no ``jax`` and no ``repro`` import, anywhere in
 ``src/repro_torch``, ``chip_smoke.py``, ``chip_mutants.py`` or
 ``chip_compare.py``, and it
-serves, schedules and simulates under faults, HadarE, the env and the
-sanitized policy comparison included, with both blocked."""
+serves, schedules and simulates under faults, HadarE, the env, the
+sanitized policy comparison and the observer included, with both blocked;
+``python -m repro_torch.obs`` runs with both blocked too."""
 import ast
 import os
 import subprocess
@@ -57,7 +58,12 @@ def test_no_jax_or_repro_imports():
             "src/repro_torch/env/__init__.py",
             "src/repro_torch/env/baselines.py",
             "src/repro_torch/env/env.py",
-            "src/repro_torch/env/compare.py"} <= names
+            "src/repro_torch/env/compare.py",
+            "src/repro_torch/obs/__init__.py",
+            "src/repro_torch/obs/__main__.py",
+            "src/repro_torch/obs/explain.py",
+            "src/repro_torch/obs/metrics.py",
+            "src/repro_torch/obs/trace.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in FORBIDDEN]
@@ -137,6 +143,15 @@ doc = cmp.compare(philly_trace(n_jobs=6, seed=1), cluster,
                   ("hadar", "srtf"), device="cpu")
 assert cmp.validate_table(doc) == [], doc
 print("env", res.total_seconds, len(rewards), cmp.render_table(doc))
+from repro_torch import obs
+with obs.session() as ob:
+    ev = simulate_events(HadarScheduler(solver="cuda", device="cpu"),
+                         philly_trace(n_jobs=8, seed=2), cluster,
+                         faults=model)
+assert obs.validate_trace(ob.trace.to_json()) == []
+assert ob.metrics.counter("solver_batch_calls").value > 0
+print("obs", len(ob.decisions), obs.explain_allocation(
+    ob.decisions.decisions[0]).splitlines()[0])
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 """
@@ -154,6 +169,7 @@ def test_serves_with_jax_and_repro_blocked():
     assert "events" in res.stdout
     assert "hadare" in res.stdout
     assert "env" in res.stdout
+    assert "obs" in res.stdout
 
 
 def test_compare_cli_runs_as_a_module():
@@ -166,3 +182,31 @@ def test_compare_cli_runs_as_a_module():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "fcfs" in res.stdout and "srtf" in res.stdout
+
+
+OBS_CLI_WITHOUT_JAX = """
+import runpy
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from repro_torch import obs
+tr = obs.TraceRecorder()
+tr.sim_span("interval", 0.0, 1.0)
+tr.save(sys.argv[1])
+sys.argv = ["python -m repro_torch.obs", "summarize", sys.argv[1]]
+try:
+    runpy.run_module("repro_torch.obs", run_name="__main__")
+except SystemExit as stop:
+    assert stop.code == 0, stop.code
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_obs_cli_runs_with_jax_and_repro_blocked(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    res = subprocess.run([sys.executable, "-c", OBS_CLI_WITHOUT_JAX,
+                          str(tmp_path / "t.json")], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "sim-time/interval" in res.stdout
