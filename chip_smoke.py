@@ -6,7 +6,9 @@
 Builds every hand-written kernel from ``src/repro_torch/kernels/csrc`` and
 drives the port's paths with random weights and traces from ``--seed``:
 llama3.2-1b and rwkv6-7b at full width and depth (flash attention K1, the
-WKV6 scan K2, RMSNorm K3) and the Hadar decision path on the fig5 shape
+WKV6 scan K2, RMSNorm K3), qwen3-moe-235b-a22b, grok-1-314b and
+qwen2.5-32b at full width and cut depth (K1, K3), and the Hadar decision
+path on the fig5 shape
 (FIND_ALLOC K4, the greedy commit K5), through the round and the event
 engine, HadarE's forked copies and the scheduling env, with and without
 faults, the policy-comparison table under the runtime sanitizer, and two
@@ -23,7 +25,9 @@ non-zero.
    (``rowblock_rel_err``), so the limit follows the output's size along
    the sequence.
    K1: the shape sweep of the JAX package's kernel tests, the llama3.2-1b
-   prefill shapes, ragged S=100 and S=1000, a window of 300 at S=2048
+   prefill shapes, the prefill shapes of qwen3-moe (64 q heads over 4 kv
+   heads, D=64), grok-1 (48/8, D=128), granite-34b (48/1, MQA) and
+   qwen2.5-32b (40/8) at 4 x 1024 tokens in the model layout, ragged S=100 and S=1000, a window of 300 at S=2048
    (its lower edge inside a key tile) and D=128 at S=1024 (a row in two
    swizzle boxes); every case runs twice and the two outputs must be
    bitwise equal; timed beside ``scaled_dot_product_attention`` (a
@@ -172,6 +176,28 @@ non-zero.
    on the card.  Reports each run's observed and unobserved wall and the
    trace's totals of the consult's spans (``OBS_SPANS``).
 
+13. prefill_moe -- phase 2 for qwen3-moe-235b-a22b at full width (d_model
+   4096, 64 q heads over 4 kv heads of 64, 128 experts of d_ff 1536,
+   top-8, the grouped form), 8 of its 94 layers in bf16 (41.7 GB): K1 8
+   times and K3 17 times per kernel-path forward; the float32 draws at
+   depths 1 and 2.  Each layer's routing (top-k experts and kept slots)
+   is computed on both paths' own MoE input: the tokens routed
+   differently are reported, at most 0.1% of them in float32, and the
+   layer outputs are held to 2e-4 on the tokens routed alike.  On the
+   first float32 layer, the JAX package's property of its MoE forms:
+   ``moe_ffn_grouped``, ``_flat`` and ``_dense`` within 2e-4 of the
+   largest output at capacity factor 8, the grouped form twice bitwise
+   equal, and finite at factor 0.05.  Runs after phase 5, as do 14-16.
+14. serve_moe -- phase 3 for qwen3-moe at 8 layers; decode takes the
+   grouped form at S = 1 and launches no kernel.
+15. prefill_grok -- phase 13 for grok-1-314b at full width (d_model 6144,
+   48/8 heads of 128, 8 experts of d_ff 32768, top-2, the dense form), 4
+   of its 64 layers (42.6 GB): K1 4 times and K3 9 times; float32 at
+   depth 1.
+16. prefill_qwen2 -- phase 2 for qwen2.5-32b at full width (d_model 5120,
+   40/8 heads of 128, QKV bias drawn non-zero from the seed), 16 of its 64
+   layers: K1 16 times and K3 33 times; float32 at depths 1 and 2.
+
 Full-depth agreement of the two model paths is printed, not gated: the
 random init makes a deep stack chaotic.  It prints a ``{"kernels":
 [...]}`` line, the card's name and power limit, and last ``{"ok": true,
@@ -180,6 +206,7 @@ random init makes a deep stack chaotic.  It prints a ``{"kernels":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -204,12 +231,22 @@ PEAK_BYTES = 3.35e12
 # block's largest value are at most 2 * 2**-7 = 0.0156 of it.
 F32_TOL = 2e-4
 BF16_REL_TOL = 3e-2
+# float32 K1 in a model layer at D = 128 (``_attention_check``): the
+# kernel's max abs error against the float64 attention, over the plain
+# version's own
+F64_FACTOR = 2.0
 ROW_BLOCK = 64
 SWEEP = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
          (2, 2, 2, 384, 32)]
 MASKS = [(True, 0), (True, 96), (False, 0)]
 # llama3.2-1b: 32 q heads, 8 kv heads, head dim 64, window 8192
 LLAMA_PREFILL = (4, 32, 8, 1024, 64, "bfloat16", True, 8192)
+# the attention of the other decoder configs' prefills on 4 x 1024 tokens
+# (Hq, Hkv, head dim): qwen3-moe G = 16, grok-1 G = 6, granite-34b MQA
+# (G = 48), qwen2.5-32b G = 5
+MODEL_ATTENTION = {"qwen3-moe-235b-a22b": (64, 4, 64),
+                   "grok-1-314b": (48, 8, 128), "granite-34b": (48, 1, 128),
+                   "qwen2.5-32b": (40, 8, 128)}
 # K2: the JAX package's rwkv6 sweep (tests/test_kernels.py) and the
 # rwkv6-7b prefill shape (64 heads of 64, 4 x 1024 tokens)
 RWKV_SWEEP = [(1, 2, 64, 16), (2, 2, 128, 32), (1, 1, 96, 64)]
@@ -410,8 +447,10 @@ def kernel_cases():
     cases = [(B, Hq, Hkv, S, D, dt, c, w, False, 10)
              for (B, Hq, Hkv, S, D) in SWEEP
              for dt in ("float32", "bfloat16") for c, w in MASKS]
-    cases += [LLAMA_PREFILL + (True, 20),
-              (4, 32, 8, 2048, 64, "bfloat16", True, 8192, False, 20),
+    cases += [LLAMA_PREFILL + (True, 20)]
+    cases += [(4, Hq, Hkv, 1024, D, "bfloat16", True, 8192, True, 20)
+              for Hq, Hkv, D in MODEL_ATTENTION.values()]
+    cases += [(4, 32, 8, 2048, 64, "bfloat16", True, 8192, False, 20),
               (1, 32, 8, 1000, 64, "bfloat16", True, 8192, False, 20),
               (1, 32, 8, 1000, 64, "bfloat16", False, 0, False, 10),
               (1, 32, 8, 1000, 64, "float32", False, 0, False, 10),
@@ -1447,7 +1486,8 @@ def phase_kernel(seed: int):
                   for row in sched_case(n, topo)]
     sched_rows += [k4_case(*case) for case in EXTRA_K4]
     sched_rows += [extra_case(*case) for case in EXTRA_K5]
-    main = {"flash_attention": next(r for r in rows if r["model_layout"]),
+    main = {"flash_attention": next(r for r in rows if r["model_layout"]
+                                    and r["shape"] == [*LLAMA_PREFILL[:5]]),
             "rwkv6_scan": next(r for r in rwkv_rows if r["kind"] == "main"),
             "rmsnorm": next(r for r in rms_rows if r["kind"] == "main")}
     for name in ("find_alloc", "commit_scan"):
@@ -1480,6 +1520,43 @@ def _depth_agreement(model, cfg, tokens, depth: int) -> dict:
             "max_abs_logit_diff": float((lk.float() - lx.float()).abs().max())}
 
 
+def _routing(blk, h, cfg, grouped: bool = None):
+    """The slots of the MoE layer ``blk`` on its input ``h``: each token's
+    top-k experts in expert order (B,S,K) and whether the slot to each is
+    kept (B,S,K) by the grouped form (``grouped``) or the dense form,
+    which keeps every slot; by default the form ``moe.moe_ffn`` picks.
+    Two of a token's top-k that swap places in the descending order give
+    the same slots: the token's output is the same sum."""
+    import torch
+    from repro_torch.models import moe
+    B, S, _ = h.shape
+    _, topi, _ = moe.route((h @ blk.router).reshape(B * S, -1), cfg)
+    topi = topi.reshape(B, S, -1)
+    if grouped is None:
+        grouped = cfg.n_experts >= moe.GROUPED_MIN_EXPERTS
+    if grouped:
+        keep, _ = moe._positions(topi.reshape(B, -1), cfg.n_experts,
+                                 moe.capacity(S, cfg))
+        keep = keep.reshape(topi.shape)
+    else:
+        keep = torch.ones_like(topi, dtype=torch.bool)
+    experts, order = torch.sort(topi, dim=-1, stable=True)
+    return experts, keep.gather(-1, order)
+
+
+@contextlib.contextmanager
+def _moe_inputs():
+    """While active, records the input of every ``moe.moe_ffn`` call."""
+    from repro_torch.models import moe
+    inputs, ffn = [], moe.moe_ffn
+
+    def recorded(p, h, cfg):
+        inputs.append(h)
+        return ffn(p, h, cfg)
+    with mock.patch.object(moe, "moe_ffn", recorded):
+        yield inputs
+
+
 def _layerwise(model, cfg, tokens, check) -> dict:
     """Every layer on the same input (the plain path's output of the layer
     before), so that nothing compounds across layers:
@@ -1487,7 +1564,13 @@ def _layerwise(model, cfg, tokens, check) -> dict:
     - ``block_rel_diff``: the layer through both paths, max |difference|
       over max |output|;
     - ``kernel``: ``check(blk, x, positions, cfg)``, the kernel on the
-      layer's own inputs against its plain version."""
+      layer's own inputs against its plain version;
+    - for the moe family, ``routed_differently``: the tokens whose experts
+      or kept slots differ between the two paths (``_routing`` on each
+      path's own MoE input), and ``experts_differ``: those whose experts
+      differ.  A token across a top-k or capacity edge
+      legitimately changes by O(1), so ``block_rel_diff`` is then taken
+      over the other tokens only."""
     import torch
     from repro_torch.models.blocks import block_fwd
     win = cfg.sliding_window
@@ -1496,31 +1579,80 @@ def _layerwise(model, cfg, tokens, check) -> dict:
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = model.embed[tokens]
     res = {"block_rel_diff": [], "kernel": []}
+    if cfg.family == "moe":
+        res.update(tokens=tokens.numel(), routed_differently=[],
+                   experts_differ=[])
     for blk in model.blocks:
         res["kernel"].append(check(blk, x, positions, cfg))
-        yk, _ = fk(blk, x, positions)
-        yx, _ = fx(blk, x, positions)
-        res["block_rel_diff"].append(float(
-            (yk.float() - yx.float()).abs().max() / yx.float().abs().max()))
+        with _moe_inputs() as inputs:
+            yk, _ = fk(blk, x, positions)
+            yx, _ = fx(blk, x, positions)
+        diff = (yk.float() - yx.float()).abs().amax(-1)        # (B, S)
+        size = yx.float().abs().amax(-1)
+        if inputs:
+            (tk, kk), (tx, kx) = (_routing(blk, h, cfg) for h in inputs)
+            other = (tk != tx).any(-1)
+            moved = other | (kk != kx).any(-1)
+            res["experts_differ"].append(int(other.sum()))
+            res["routed_differently"].append(int(moved.sum()))
+            diff, size = diff[~moved], size[~moved]
+        res["block_rel_diff"].append(float(diff.max() / size.max()))
         x = yx
+        del yk, inputs
     return res
 
 
+def _attention_f64(q, k, v, window: int):
+    """Causal (sliding-window) GQA attention of kernel-layout q, k, v in
+    float64: the exact function the f32 kernel and its plain version
+    both round."""
+    import torch
+    B, Hq, S, D = q.shape
+    G = Hq // k.shape[1]
+    scores = torch.einsum("bhgqd,bhkd->bhgqk",
+                          q.double().unflatten(1, (-1, G)), k.double())
+    i = torch.arange(S, device=q.device)
+    mask = i[None, :] <= i[:, None]
+    if window > 0:
+        mask &= i[None, :] > i[:, None] - window
+    probs = torch.softmax(scores.div_(math.sqrt(D)).masked_fill_(
+        ~mask, -math.inf), dim=-1)
+    return torch.einsum("bhgqk,bhkd->bhgqd", probs, v.double()).flatten(1, 2)
+
+
 def _attention_check(blk, x, positions, cfg) -> dict:
-    """K1 on a llama layer's own q, k, v (the model's score scale), called
-    as ``forward`` calls it (``ops.flash_attention``, model layout in and
-    out), against its plain version, by ``gate``."""
+    """K1 on a layer's own q, k, v (the model's score scale), called as
+    ``forward`` calls it (``ops.flash_attention``, model layout in and
+    out), against its plain version, by ``gate``.
+
+    At the random init's magnitudes (outputs up to ~140) float32
+    attention is exact only to ~1e-2 of the float64 result.  Where
+    1/sqrt(D) is a power of two (D = 64) the kernel and the plain version
+    round the scaled scores alike and agree within ``F32_TOL``; where it
+    is not (D = 128) two float32 orders round apart by ~2e-2, so the
+    float32 gate is then the kernel's error against the float64
+    attention, within ``F64_FACTOR`` times the plain version's own
+    (``plain_f64_abs_err``)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import attention as attn
     from repro_torch.models.layers import apply_rope, rmsnorm
     win = cfg.sliding_window
-    q, k, v = attn.qkv(blk, rmsnorm(x, blk.ln1, cfg.norm_eps))
+    q, k, v = attn.qkv(blk, rmsnorm(x, blk.ln1, cfg.norm_eps), cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.flash_attention(q, k, v, causal=True, window=win)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    return gate(out.transpose(1, 2),
-                ref.flash_attention_ref(q, k, v, True, win), cfg.dtype)
+    out = out.transpose(1, 2)
+    want = ref.flash_attention_ref(q, k, v, True, win)
+    errs = gate(out, want, cfg.dtype)
+    if cfg.dtype == "float32" and math.log2(q.shape[-1]) % 2:
+        exact = _attention_f64(q, k, v, win)
+        err = float((out.double() - exact).abs().max())
+        plain = float((want.double() - exact).abs().max())
+        errs.update(f64_abs_err=err, plain_f64_abs_err=plain,
+                    gated_on="f64_abs_err", tol=F64_FACTOR * plain,
+                    ok=err <= F64_FACTOR * plain)
+    return errs
 
 
 def _scan_check(blk, x, positions, cfg) -> dict:
@@ -1598,7 +1730,7 @@ def _check_logits(name, lg, shape):
 
 
 # ---------------------------------------------------------------------------
-# phases 2 and 4: prefill
+# phases 2, 4, 13, 15 and 16: prefill
 # ---------------------------------------------------------------------------
 
 # Each block normalises twice (ln1 before attention or the time mix, ln2
@@ -1625,19 +1757,118 @@ def _norm_times(model, rows: int, d: int) -> dict:
 
 
 # Per model path: its kernel (one launch per layer of a kernel-path
-# ``forward``) and the per-layer check of it, the float32 model's depth
-# (None: full) and the depths at which its two paths are compared.
+# ``forward``) and the per-layer check of it, the depth the bf16 model is
+# cut to (None: full), the float32 model's depth (None: full) and the
+# depths at which its two paths are compared.  Every model runs at its
+# published width.  Cuts: qwen3-moe 8 of 94 layers (4.90 GB of weights a
+# layer, 2.49 GB of untied embeddings: 41.7 GB) and grok-1 4 of 64 (9.84
+# GB a layer, 3.22 GB of embeddings: 42.6 GB), so that the bf16 model and
+# a forward's working set fit in the card's 80 GB, and the float32 draws
+# (twice the bytes) at 2 and 1 layers; qwen2.5-32b 16 of 64 (0.98 GB a
+# layer) for the smoke's time.
 PREFILL = {
     "llama3.2-1b": {"kernel": "flash_attention", "check": _attention_check,
-                    "f32_layers": None, "depths": (1, 2, 4, 8, 16)},
+                    "layers": None, "f32_layers": None,
+                    "depths": (1, 2, 4, 8, 16)},
     "rwkv6-7b": {"kernel": "rwkv6_scan", "check": _scan_check,
-                 "f32_layers": 2, "depths": (1, 2)},
+                 "layers": None, "f32_layers": 2, "depths": (1, 2)},
+    "qwen3-moe-235b-a22b": {"kernel": "flash_attention",
+                            "check": _attention_check, "layers": 8,
+                            "f32_layers": 2, "depths": (1, 2)},
+    "grok-1-314b": {"kernel": "flash_attention", "check": _attention_check,
+                    "layers": 4, "f32_layers": 1, "depths": (1,)},
+    "qwen2.5-32b": {"kernel": "flash_attention", "check": _attention_check,
+                    "layers": 16, "f32_layers": 2, "depths": (1, 2)},
 }
+# the share of a float32 prefill's tokens that the kernel and the plain
+# path may route differently at a layer (K1 and the plain attention differ
+# by ~1e-7 relative, which moves a token across a top-k or capacity edge
+# only where two of its router probabilities nearly tie)
+MAX_ROUTED_DIFFERENTLY = 1e-3
+# the JAX package's bound between its MoE forms (tests/test_moe_variants.py),
+# here over the largest |output|; the capacity factors of that test
+MOE_FORM_TOL = 2e-4
+MOE_AUX_TOL = 1e-6
+MOE_AMPLE, MOE_TIGHT = 8.0, 0.05
+
+
+def _draw_biases(model, seed: int):
+    """Every layer's ``bq``, ``bk`` and ``bv`` drawn N(0, 1) from
+    ``seed``, layer by layer, so a cut model draws the same first layers:
+    ``init_params`` starts them at zero, as the JAX package does, which
+    would leave the bias path untested."""
+    import torch
+    gen = torch.Generator(device=model.embed.device)
+    gen.manual_seed(seed)
+    for blk in model.blocks:
+        for name in ("bq", "bk", "bv"):
+            b = getattr(blk, name)
+            b.copy_(torch.randn(b.shape, generator=gen, device=b.device))
+
+
+def _moe_forms(model, cfg, tokens) -> dict:
+    """The JAX package's own property of its MoE forms
+    (tests/test_moe_variants.py) at full width: on the first layer's MoE
+    input, at ``MOE_AMPLE`` capacity, ``moe_ffn_grouped``, ``_flat`` and
+    ``_dense`` agree within ``MOE_FORM_TOL`` of the largest |output| and
+    their aux within ``MOE_AUX_TOL``; the grouped form run twice is bitwise
+    equal; at ``MOE_TIGHT`` capacity it drops slots and its output is
+    finite.  Raises otherwise."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.blocks import block_fwd
+    blk = model.blocks[0]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    with _moe_inputs() as inputs:
+        block_fwd(cfg, cfg.sliding_window)(blk, model.embed[tokens],
+                                           positions)
+    h = inputs[0]
+    ample = dataclasses.replace(cfg, capacity_factor=MOE_AMPLE)
+    outs, res = {}, {"capacity_factor": MOE_AMPLE}
+    for form in ("moe_ffn_flat", "moe_ffn_grouped", "moe_ffn_dense"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[form] = getattr(moe, form)(blk, h, ample)
+        torch.cuda.synchronize()
+        res[f"{form}_s"] = time.perf_counter() - t0
+    o0, a0 = outs["moe_ffn_flat"]
+    size = float(o0.abs().max())
+    for form in ("moe_ffn_grouped", "moe_ffn_dense"):
+        o, a = outs[form]
+        res[f"{form}_rel_diff"] = float((o - o0).abs().max()) / size
+        res[f"{form}_aux_diff"] = abs(float(a - a0))
+    again, _ = moe.moe_ffn_grouped(blk, h, ample)
+    res["grouped_bitwise"] = bool(torch.equal(again,
+                                              outs["moe_ffn_grouped"][0]))
+    tight = dataclasses.replace(cfg, capacity_factor=MOE_TIGHT)
+    out, _ = moe.moe_ffn_grouped(blk, h, tight)
+    _, keep = _routing(blk, h, tight, grouped=True)
+    res.update(tight_dropped_slots=int((~keep).sum()),
+               tight_finite=bool(torch.isfinite(out).all()))
+    log(f"[prefill] {cfg.name} MoE forms on layer 0: {json.dumps(res)}")
+    for form in ("moe_ffn_grouped", "moe_ffn_dense"):
+        if not (res[f"{form}_rel_diff"] < MOE_FORM_TOL
+                and res[f"{form}_aux_diff"] < MOE_AUX_TOL):
+            raise RuntimeError(
+                f"{cfg.name}: {form} differs from moe_ffn_flat by "
+                f"{res[f'{form}_rel_diff']:.3g} of the largest output "
+                f"(aux {res[f'{form}_aux_diff']:.3g}) at ample capacity")
+    if not res["grouped_bitwise"]:
+        raise RuntimeError(f"{cfg.name}: moe_ffn_grouped gave two outputs "
+                           f"for the same input")
+    if not (res["tight_finite"] and res["tight_dropped_slots"] > 0):
+        raise RuntimeError(f"{cfg.name}: moe_ffn_grouped at capacity "
+                           f"factor {MOE_TIGHT} dropped "
+                           f"{res['tight_dropped_slots']} slots, finite: "
+                           f"{res['tight_finite']}")
+    return res
 
 
 def phase_prefill(seed: int, arch: str):
-    """``forward`` on 4 x 1024 tokens: bf16 at full depth through the
-    kernel and the plain path, then the same draws in float32."""
+    """``forward`` on 4 x 1024 tokens: bf16 at full width and at full
+    depth or ``PREFILL``'s cut, through the kernel and the plain path,
+    then the same draws in float32 (for the moe family with its routing
+    compared and its three MoE forms checked, ``_moe_forms``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import blocks
@@ -1645,18 +1876,29 @@ def phase_prefill(seed: int, arch: str):
     from repro_torch.models.model import init_params
     spec = PREFILL[arch]
     base = get_config(arch)
+    full_layers = base.n_layers
+    if spec["layers"]:
+        base = dataclasses.replace(base, n_layers=spec["layers"])
+        log(f"[prefill] {arch}: full width, {base.n_layers} of "
+            f"{full_layers} layers (bf16), {spec['f32_layers']} in float32")
     B, S = 4, 1024
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 1)
     tokens = torch.randint(0, base.vocab_size, (B, S), generator=gen,
                            device="cuda")
-    res = {"arch": arch, "batch": B, "seq": S}
+    res = {"arch": arch, "batch": B, "seq": S, "layers": base.n_layers,
+           "full_layers": full_layers}
+    t_phase = time.perf_counter()
 
-    # bf16, full depth: the main path
+    # bf16, full depth or the cut: the main path
     cfg_k = dataclasses.replace(base, attn_impl="pallas")
     cfg_x = dataclasses.replace(base, attn_impl="xla")
     model = init_params(base, seed, device="cuda")
+    if base.qkv_bias:
+        _draw_biases(model, seed + 2)
     res["params"] = sum(p.numel() for p in model.parameters())
+    res["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in model.parameters())
     none = {name: 0 for name in _counters()}
     norms = norms_per_forward(base)
     log(f"[prefill] {arch}: the kernel path must launch "
@@ -1698,12 +1940,24 @@ def phase_prefill(seed: int, arch: str):
     cfg32 = dataclasses.replace(base, dtype="float32",
                                 n_layers=spec["f32_layers"] or base.n_layers)
     model32 = init_params(cfg32, seed, device="cuda")
+    if base.qkv_bias:
+        _draw_biases(model32, seed + 2)
     res["f32_depth"] = [_depth_agreement(model32, cfg32, tokens, n)
                         for n in spec["depths"]]
     res["f32_layerwise"] = _layerwise(model32, cfg32, tokens, spec["check"])
+    if base.family == "moe":
+        res["f32_moe_forms"] = _moe_forms(model32, cfg32, tokens)
     del model32
     torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
     log("[prefill] " + json.dumps(res))
+    if base.family == "moe":
+        moved = max(res["f32_layerwise"]["routed_differently"])
+        if not moved <= MAX_ROUTED_DIFFERENTLY * B * S:
+            raise RuntimeError(
+                f"{arch} float32: the kernel and plain paths route {moved} "
+                f"of {B * S} tokens differently at a layer, want at most "
+                f"{MAX_ROUTED_DIFFERENTLY:.1%}")
     one = res["f32_depth"][0]["top1"]
     if not one >= 0.99:
         raise RuntimeError(f"{arch} float32, one layer: kernel and plain "
@@ -1711,9 +1965,10 @@ def phase_prefill(seed: int, arch: str):
                            f"positions, want >= 0.99")
     worst = max(res["f32_layerwise"]["block_rel_diff"])
     if not worst < 2e-4:
+        alike = " on the tokens routed alike" * (base.family == "moe")
         raise RuntimeError(f"{arch} float32 layer outputs of the kernel and "
-                           f"plain paths differ by {worst:.3g} of their "
-                           f"largest value, want < 2e-4")
+                           f"plain paths differ{alike} by {worst:.3g} of "
+                           f"their largest value, want < 2e-4")
     for dt in ("bf16", "f32"):
         for i, g in enumerate(res[f"{dt}_layerwise"]["kernel"]):
             if not g["ok"]:
@@ -1727,13 +1982,15 @@ def phase_prefill(seed: int, arch: str):
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 5: serve
+# phases 3, 5 and 14: serve
 # ---------------------------------------------------------------------------
 
-def phase_serve(seed: int, arch: str):
-    """8 requests of 32-96 prompt tokens, 32 new tokens each, on 4 slots.
-    The engine prefills and decodes through ``decode_step``, which
-    launches no kernel (as in the JAX package); every count must read 0."""
+def phase_serve(seed: int, arch: str, layers: int = None):
+    """8 requests of 32-96 prompt tokens, 32 new tokens each, on 4 slots,
+    with the model cut to ``layers`` (None: full depth).  The engine
+    prefills and decodes through ``decode_step``, which launches no kernel
+    (as in the JAX package; the moe family's decode takes the form
+    ``moe_ffn`` picks at S = 1); every count must read 0."""
     import gc
     import numpy as np
     import torch
@@ -1741,6 +1998,8 @@ def phase_serve(seed: int, arch: str):
     from repro_torch.models.model import init_params
     from repro_torch.serve.serve_step import Request, ServingEngine
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = init_params(cfg, seed, device="cuda")
     eng = ServingEngine(cfg, model, slots=4, max_seq=256, device="cuda")
     rs = np.random.RandomState(seed)
@@ -1758,7 +2017,8 @@ def phase_serve(seed: int, arch: str):
             or r.out.max() >= cfg.vocab_size for r in done):
         raise RuntimeError(f"serve {arch}: a request did not complete with "
                            f"32 valid tokens")
-    res = {"arch": arch, "requests": len(done), "prompt_tokens": int(sum(
+    res = {"arch": arch, "layers": cfg.n_layers, "requests": len(done),
+           "prompt_tokens": int(sum(
                len(r.prompt) for r in reqs)), "new_tokens": new,
            "wall_s": wall, "tok_per_s": new / wall,
            "kernel_launches": launches}
@@ -2620,6 +2880,14 @@ def main(argv=None) -> int:
     serve = phase_serve(args.seed, "llama3.2-1b")
     prefill_rwkv = phase_prefill(args.seed, "rwkv6-7b")
     serve_rwkv = phase_serve(args.seed, "rwkv6-7b")
+    t0 = time.perf_counter()
+    prefill_moe = phase_prefill(args.seed, "qwen3-moe-235b-a22b")
+    serve_moe = phase_serve(args.seed, "qwen3-moe-235b-a22b",
+                            PREFILL["qwen3-moe-235b-a22b"]["layers"])
+    prefill_grok = phase_prefill(args.seed, "grok-1-314b")
+    prefill_qwen2 = phase_prefill(args.seed, "qwen2.5-32b")
+    log(f"[prefill] the phases prefill_moe, serve_moe, prefill_grok and "
+        f"prefill_qwen2 took {time.perf_counter() - t0:.1f} s")
     schedule = phase_schedule()
     sim, rounds_plain = phase_simulate()
     events, events_fields = phase_events()
@@ -2648,6 +2916,19 @@ def main(argv=None) -> int:
                     "library_ms")}}
                for name, (replaces, launches) in paths.items()]
     kernels[-1]["us_per_step"] = main_rows["commit_scan"]["us_per_step"]
+    # K1 and K3 per forward of each model path, and K1 at each config's
+    # attention shape (``MODEL_ATTENTION``)
+    forwards = {r["arch"]: r["launches"] for r in (
+        prefill, prefill_rwkv, prefill_moe, prefill_grok, prefill_qwen2)}
+    for k in kernels[0], kernels[2]:
+        k["launches_per_forward"] = {arch: n[k["name"]]
+                                     for arch, n in forwards.items()}
+    kernels[0]["model_shapes"] = {
+        arch: {key: row[key] for key in ("shape", "max_rel_err", "ms",
+                                         "library_ms", "bound_ms")}
+        for arch, (Hq, Hkv, D) in MODEL_ATTENTION.items()
+        for row in rows if row.get("model_layout")
+        and row["shape"] == [4, Hq, Hkv, 1024, D]}
     for k in kernels[-2:]:
         k["event_run_launches"] = events["cuda"]["launches"][k["name"]]
         k["hadare_run_launches"] = hadare["cuda"]["launches"][k["name"]]
@@ -2661,6 +2942,10 @@ def main(argv=None) -> int:
                                    "prefill": prefill, "serve": serve,
                                    "prefill_rwkv": prefill_rwkv,
                                    "serve_rwkv": serve_rwkv,
+                                   "prefill_moe": prefill_moe,
+                                   "serve_moe": serve_moe,
+                                   "prefill_grok": prefill_grok,
+                                   "prefill_qwen2": prefill_qwen2,
                                    "schedule": schedule, "simulate": sim,
                                    "events": events, "mini": mini,
                                    "hadare": hadare, "env": env,

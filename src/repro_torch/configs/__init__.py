@@ -9,11 +9,25 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-_PORTED = ("llama3_2_1b", "rwkv6_7b")
+_PORTED = (
+    "tinyllama_1_1b",
+    "grok_1_314b",
+    "granite_34b",
+    "llama3_2_1b",
+    "qwen3_moe_235b_a22b",
+    "rwkv6_7b",
+    "qwen2_5_32b",
+)
 
+# the JAX package's names, in its order
 _ALIASES = {
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "grok-1-314b": "grok_1_314b",
+    "granite-34b": "granite_34b",
     "llama3.2-1b": "llama3_2_1b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "rwkv6-7b": "rwkv6_7b",
+    "qwen2.5-32b": "qwen2_5_32b",
 }
 
 

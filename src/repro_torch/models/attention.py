@@ -3,8 +3,10 @@
 The einsum path (``cfg.attn_impl == "xla"``) is the plain version; with
 ``"pallas"`` the prefill goes through ``kernels.ops.flash_attention``,
 which launches the hand-written Hopper kernel on a CUDA tensor.  ``p`` is
-a layer's ``DenseBlock``: its parameters keep the JAX package's names and
-layouts (``wq`` (d, Hq, Dh), ``wk``/``wv`` (d, Hkv, Dh), ``wo`` (Hq, Dh, d)).
+a layer's ``DenseBlock`` or ``MoEBlock``: its parameters keep the JAX
+package's names and layouts (``wq`` (d, Hq, Dh), ``wk``/``wv`` (d, Hkv,
+Dh), ``wo`` (Hq, Dh, d), and with ``cfg.qkv_bias`` ``bq`` (Hq, Dh),
+``bk``/``bv`` (Hkv, Dh)).
 """
 from __future__ import annotations
 
@@ -24,8 +26,11 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
-def qkv(p, x: torch.Tensor):
-    return _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+def qkv(p, x: torch.Tensor, cfg: ModelConfig):
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    return q, k, v
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -75,7 +80,7 @@ def causal_mask(sq: int, sk: int, window: int = 0,
 def self_attention(p, x: torch.Tensor, cfg: ModelConfig,
                    positions: torch.Tensor, window: int = 0) -> torch.Tensor:
     """Causal prefill self-attention over the full sequence."""
-    q, k, v = qkv(p, x)
+    q, k, v = qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cfg.attn_impl == "pallas":
@@ -118,7 +123,7 @@ def decode_self_attention(p, x: torch.Tensor, cfg: ModelConfig,
                           seq_sharded: bool = False):
     """x: (B,1,D); cache: (B,S,Hkv,Dh), updated in place.  Returns (out,
     cache_k, cache_v)."""
-    q, k1, v1 = qkv(p, x)
+    q, k1, v1 = qkv(p, x, cfg)
     posv = torch.full((1, 1), pos, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k1 = apply_rope(k1, posv, cfg.rope_theta)

@@ -3,33 +3,20 @@
 ``block_fwd(cfg, window)(block, x, positions)`` -> (x, aux)
 ``block_decode(cfg, window, seq_sharded)(block, c, x, pos)`` -> x, where
 ``c`` is the layer's cache as a dict of slices, written in place.
-Ported: the dense family with llama's options (no QKV bias) and the ssm
-family (rwkv6); anything else raises ``NotImplementedError``.
+Ported: the dense family (with or without QKV bias), the moe family
+(qwen3-moe, grok-1) and the ssm family (rwkv6); anything else raises
+``NotImplementedError``.
 """
 from __future__ import annotations
-
-import math
-from typing import Dict, Tuple, Union
 
 import torch
 from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models import rwkv
+from repro_torch.models import moe, rwkv
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rmsnorm, swiglu
-
-# How ``model.init_params`` fills a parameter: "ones", "zeros", or the std
-# of a normal draw.
-Init = Union[str, float]
-Specs = Dict[str, Tuple[Tuple[int, ...], Init]]
-
-
-def fan_in(*shape: int) -> Tuple[Tuple[int, ...], Init]:
-    """A normal draw of std 1/sqrt(shape[-2]): the JAX ``ParamFactory``
-    default, whose stacked shapes have the same second-to-last dim."""
-    return shape, 1.0 / math.sqrt(max(1, shape[-2]))
+from repro_torch.models.layers import Specs, fan_in, rmsnorm, swiglu
 
 
 def register_params(module: nn.Module, specs: Specs, device: torch.device,
@@ -42,11 +29,9 @@ def register_params(module: nn.Module, specs: Specs, device: torch.device,
 
 
 def _require_ported(cfg: ModelConfig):
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"blocks of the {cfg.family!r} family are not ported yet")
-    if cfg.qkv_bias:
-        raise NotImplementedError("QKV bias is not ported yet")
 
 
 class _Block(nn.Module):
@@ -62,17 +47,39 @@ class _Block(nn.Module):
         register_params(self, self.specs(cfg), device, dtype)
 
 
+def _attn_specs(cfg: ModelConfig) -> Specs:
+    """``repro.models.attention.init_attn``: the projections, and with
+    ``cfg.qkv_bias`` the biases ``bq`` (H, Dh), ``bk`` and ``bv`` (Hkv, Dh),
+    which start at zero."""
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    specs = {"wq": fan_in(d, H, Dh), "wk": fan_in(d, Hkv, Dh),
+             "wv": fan_in(d, Hkv, Dh), "wo": fan_in(H, Dh, d)}
+    if cfg.qkv_bias:
+        specs.update(bq=((H, Dh), "zeros"), bk=((Hkv, Dh), "zeros"),
+                     bv=((Hkv, Dh), "zeros"))
+    return specs
+
+
 class DenseBlock(_Block):
     @staticmethod
     def specs(cfg: ModelConfig) -> Specs:
         """``repro.models.blocks.init_blocks`` and ``attention.init_attn``."""
-        d, f, H, Hkv, Dh = (cfg.d_model, cfg.d_ff, cfg.n_heads,
-                            cfg.n_kv_heads, cfg.head_dim)
+        d, f = cfg.d_model, cfg.d_ff
         return {"ln1": ((d,), "ones"), "ln2": ((d,), "ones"),
-                "wq": fan_in(d, H, Dh), "wk": fan_in(d, Hkv, Dh),
-                "wv": fan_in(d, Hkv, Dh), "wo": fan_in(H, Dh, d),
+                **_attn_specs(cfg),
                 "w_gate": fan_in(d, f), "w_up": fan_in(d, f),
                 "w_down": fan_in(f, d)}
+
+
+class MoEBlock(_Block):
+    @staticmethod
+    def specs(cfg: ModelConfig) -> Specs:
+        """``repro.models.blocks.init_blocks`` for the moe family: the
+        attention of ``DenseBlock`` and ``moe.init_moe``'s experts in place
+        of its MLP."""
+        d = cfg.d_model
+        return {"ln1": ((d,), "ones"), "ln2": ((d,), "ones"),
+                **_attn_specs(cfg), **moe.init_moe(cfg)}
 
 
 class RWKVBlock(_Block):
@@ -116,6 +123,13 @@ def block_fwd(cfg: ModelConfig, window: int):
         x = x + swiglu(h, p.w_gate, p.w_up, p.w_down)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
+    def moe_blk(p: MoEBlock, x, positions):
+        h = norm(x, p.ln1, eps)
+        x = x + attn.self_attention(p, h, cfg, positions, window)
+        h = norm(x, p.ln2, eps)
+        y, aux = moe.moe_ffn(p, h, cfg)
+        return x + y, aux
+
     def ssm(p: RWKVBlock, x, positions):
         B, _, d = x.shape
         zshift = torch.zeros((B, 1, d), dtype=x.dtype, device=x.device)
@@ -128,7 +142,7 @@ def block_fwd(cfg: ModelConfig, window: int):
         y, _ = rwkv.channel_mix(p, h, zshift)
         return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
 
-    return ssm if cfg.family == "ssm" else dense
+    return {"dense": dense, "moe": moe_blk, "ssm": ssm}[cfg.family]
 
 
 def block_decode(cfg: ModelConfig, window: int, seq_sharded: bool):
@@ -137,13 +151,24 @@ def block_decode(cfg: ModelConfig, window: int, seq_sharded: bool):
     _require_ported(cfg)
     eps = cfg.norm_eps
 
-    def dense(p: DenseBlock, c, x, pos):
+    def kv_attn(p, c, x, pos):
         h = rmsnorm(x, p.ln1, eps)
         out, _, _ = attn.decode_self_attention(
             p, h, cfg, c["k"], c["v"], pos, window, seq_sharded)
-        x = x + out
+        return x + out
+
+    def dense(p: DenseBlock, c, x, pos):
+        x = kv_attn(p, c, x, pos)
         h = rmsnorm(x, p.ln2, eps)
         return x + swiglu(h, p.w_gate, p.w_up, p.w_down)
+
+    def moe_blk(p: MoEBlock, c, x, pos):
+        # the form ``moe_ffn`` picks at S = 1: grouped for qwen3-moe, whose
+        # capacity(1) is top_k, so no slot drops while decoding
+        x = kv_attn(p, c, x, pos)
+        h = rmsnorm(x, p.ln2, eps)
+        y, _ = moe.moe_ffn(p, h, cfg)
+        return x + y
 
     def ssm(p: RWKVBlock, c, x, pos):
         # One step of the plain scan, as the JAX package's decode does
@@ -159,4 +184,4 @@ def block_decode(cfg: ModelConfig, window: int, seq_sharded: bool):
         c["shift_c"].copy_(shift_c)
         return x + y
 
-    return ssm if cfg.family == "ssm" else dense
+    return {"dense": dense, "moe": moe_blk, "ssm": ssm}[cfg.family]

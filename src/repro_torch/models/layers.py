@@ -6,12 +6,26 @@ products run in the working type.
 """
 from __future__ import annotations
 
+import math
+from typing import Dict, Tuple, Union
+
 import torch
 import torch.nn.functional as F
 
 # The plain RMSNorm (float32 math, cast back): the plain version of kernel
 # K3, which the kernel path of ``forward`` takes instead (blocks.norm_fn).
 from repro_torch.kernels.ref import rmsnorm_ref as rmsnorm  # noqa: F401
+
+# How ``model.init_params`` fills a parameter: "ones", "zeros", or the std
+# of a normal draw.
+Init = Union[str, float]
+Specs = Dict[str, Tuple[Tuple[int, ...], Init]]
+
+
+def fan_in(*shape: int) -> Tuple[Tuple[int, ...], Init]:
+    """A normal draw of std 1/sqrt(shape[-2]): the JAX ``ParamFactory``
+    default, whose stacked shapes have the same second-to-last dim."""
+    return shape, 1.0 / math.sqrt(max(1, shape[-2]))
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

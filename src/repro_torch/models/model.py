@@ -2,8 +2,8 @@
 
 A Python loop over the layers replaces the JAX package's ``lax.scan``;
 ``cfg.remat`` is ignored, since nothing here keeps activations for a
-backward pass.  Ported: llama-style dense models and rwkv6 (ssm)
-(``blocks._require_ported``).
+backward pass.  Ported: the dense family (llama-style, QKV bias
+included), the moe family and rwkv6 (ssm) (``blocks._require_ported``).
 """
 from __future__ import annotations
 
@@ -21,13 +21,14 @@ from repro_torch.models.layers import rmsnorm
 class Transformer(nn.Module):
     """Parameters of a decoder: ``embed`` (V, d), ``unembed`` (d, V) when
     the embeddings are untied, ``final_norm`` (d,), and one block per
-    layer in ``blocks`` (``DenseBlock`` or ``RWKVBlock`` by family).  The
-    computation is in ``forward`` and ``decode_step``."""
+    layer in ``blocks`` (``DenseBlock``, ``MoEBlock`` or ``RWKVBlock`` by
+    family).  The computation is in ``forward`` and ``decode_step``."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  dtype: torch.dtype):
         super().__init__()
-        block = B.RWKVBlock if cfg.family == "ssm" else B.DenseBlock
+        block = {"ssm": B.RWKVBlock, "moe": B.MoEBlock}.get(cfg.family,
+                                                           B.DenseBlock)
         B.register_params(self, self.specs(cfg), device, dtype)
         self.blocks = nn.ModuleList(block(cfg, device, dtype)
                                     for _ in range(cfg.n_layers))
@@ -91,7 +92,9 @@ def _unembed(model: Transformer, cfg: ModelConfig,
 
 def forward(model: Transformer, cfg: ModelConfig, batch: dict,
             window: Optional[int] = None):
-    """Returns (logits (B,S,V), aux_loss).  ``batch["tokens"]``: (B,S)
+    """Returns (logits (B,S,V), aux_loss): the sum over layers of each
+    block's aux (for the moe family the router's load-balance loss times
+    ``cfg.router_aux_weight``, else 0).  ``batch["tokens"]``: (B,S)
     integer tensor on the model's device."""
     tokens = batch["tokens"]
     S = tokens.shape[1]

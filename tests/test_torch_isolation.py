@@ -1,7 +1,7 @@
 """The port stands alone: no ``jax`` and no ``repro`` import, anywhere in
 ``src/repro_torch``, ``chip_smoke.py``, ``chip_mutants.py`` or
 ``chip_compare.py``, and it
-serves, schedules and simulates under faults, HadarE, the env, the
+serves (the dense, moe and ssm families), schedules and simulates under faults, HadarE, the env, the
 sanitized policy comparison and the observer included, with both blocked;
 ``python -m repro_torch.obs`` runs with both blocked too."""
 import ast
@@ -31,6 +31,12 @@ def test_no_jax_or_repro_imports():
               REPO / "chip_compare.py"]
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"src/repro_torch/models/rwkv.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/configs/qwen3_moe_235b_a22b.py",
+            "src/repro_torch/configs/grok_1_314b.py",
+            "src/repro_torch/configs/tinyllama_1_1b.py",
+            "src/repro_torch/configs/granite_34b.py",
+            "src/repro_torch/configs/qwen2_5_32b.py",
             "src/repro_torch/kernels/rwkv6_scan.py",
             "src/repro_torch/configs/rwkv6_7b.py",
             "src/repro_torch/kernels/rmsnorm.py",
@@ -78,10 +84,11 @@ import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.kernels import build, flash_attention, ops, ref, rwkv6_scan
 from repro_torch.launch import serve
-from repro_torch.models import convert, rwkv
+from repro_torch.models import convert, moe, rwkv
 from repro_torch.models.model import init_params
 from repro_torch.serve.serve_step import Request, ServingEngine
-for arch in ("llama3.2-1b", "rwkv6-7b"):
+for arch in ("llama3.2-1b", "rwkv6-7b", "qwen3-moe-235b-a22b", "grok-1-314b",
+             "qwen2.5-32b"):
     cfg = get_config(arch).reduced(n_layers=1, max_d_model=128)
     model = init_params(cfg, seed=0, device="cpu")
     eng = ServingEngine(cfg, model, slots=1, max_seq=8, device="cpu")
@@ -165,6 +172,9 @@ def test_serves_with_jax_and_repro_blocked():
     assert res.returncode == 0, res.stderr
     assert "served llama3.2-1b" in res.stdout
     assert "served rwkv6-7b" in res.stdout
+    assert "served qwen3-moe-235b-a22b" in res.stdout
+    assert "served grok-1-314b" in res.stdout
+    assert "served qwen2.5-32b" in res.stdout
     assert "scheduled" in res.stdout
     assert "events" in res.stdout
     assert "hadare" in res.stdout

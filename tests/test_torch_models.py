@@ -1,8 +1,11 @@
-"""The port's llama3.2-1b against the JAX package's, in float32 on the CPU.
+"""The port's dense models against the JAX package's, in float32 on the
+CPU: llama3.2-1b, tinyllama-1.1b, granite-34b (MQA) and qwen2.5-32b (QKV
+bias).
 
-Reduced config with two KV heads, so that GQA grouping is exercised
-(``reduced()`` alone makes n_kv_heads == n_heads).  Weights come from the
-JAX ``init_params`` and reach the port through ``params_from_numpy``.
+The llama config is reduced with two KV heads, so that GQA grouping is
+exercised (``reduced()`` alone makes n_kv_heads == n_heads).  Weights come
+from the JAX ``init_params`` and reach the port through
+``params_from_numpy``.
 """
 import dataclasses
 
@@ -39,6 +42,21 @@ def _pair(cfg):
     return params, model
 
 
+def _biased_pair(cfg, seed=5):
+    """The JAX tree with ``bq``/``bk``/``bv`` set to seeded non-zero values
+    (the JAX ``init_params`` starts them at zero, which would test
+    nothing), and the port's model from that same tree."""
+    params, _ = jax_init_params(cfg, jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.array, params)
+    rs = np.random.RandomState(seed)
+    for name in ("bq", "bk", "bv"):
+        b = tree["blocks"][name]
+        tree["blocks"][name] = (rs.standard_normal(b.shape) * 0.5).astype(
+            b.dtype)
+    return (jax.tree.map(jnp.asarray, tree),
+            params_from_numpy(tree, cfg, device="cpu"))
+
+
 def _tokens(cfg, B, S, seed=0):
     return np.random.RandomState(seed).randint(0, cfg.vocab_size, (B, S))
 
@@ -48,16 +66,19 @@ def test_config_is_a_copy_of_the_jax_config():
     from repro_torch.models.config import ModelConfig
     assert ([f.name for f in dataclasses.fields(ModelConfig)]
             == [f.name for f in dataclasses.fields(JaxModelConfig)])
-    for name in ("llama3.2-1b", "rwkv6-7b"):
+    ported = ["tinyllama-1.1b", "grok-1-314b", "granite-34b", "llama3.2-1b",
+              "qwen3-moe-235b-a22b", "rwkv6-7b", "qwen2.5-32b"]
+    assert list_archs() == ported  # the JAX package's names, in its order
+    for name in ported:
         assert (dataclasses.asdict(get_config(name))
                 == dataclasses.asdict(jax_get_config(name)))
-    assert list_archs() == ["llama3.2-1b", "rwkv6-7b"]
-    for name in ("hymba-1.5b", "no-such-model"):
+    for name in ("hymba-1.5b", "internvl2-2b", "whisper-tiny",
+                 "no-such-model"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             get_config(name)
 
 
-@pytest.mark.parametrize("change", [{"family": "moe"}, {"qkv_bias": True},
+@pytest.mark.parametrize("change", [{"family": "encdec"}, {"family": "vlm"},
                                     {"family": "hybrid"}])
 def test_unported_options_raise(change):
     cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(), **change)
@@ -166,3 +187,70 @@ def test_fp8_kv_cache_dtype():
     cache = init_cache(cfg, 1, 8, device="cpu")
     assert cache["k"].dtype == torch.float8_e4m3fn
     assert cache["k"].shape == (cfg.n_layers, 1, 8, 2, cfg.head_dim)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "granite-34b"])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_dense_configs_forward_match_jax(arch, impl):
+    """tinyllama-1.1b (untied, GQA) and granite-34b (tied, MQA: reduced()
+    keeps its one KV head) as the reference reduces them."""
+    cfg = dataclasses.replace(jax_get_config(arch).reduced(), attn_impl=impl)
+    if arch == "granite-34b":
+        assert cfg.n_kv_heads == 1 and cfg.n_heads > 1
+    params, model = _pair(cfg)
+    toks = _tokens(cfg, 2, 12)
+    want, _ = jax_forward(params, cfg, {"tokens": jnp.asarray(toks)})
+    got, aux = tm.forward(model, cfg, {"tokens": torch.from_numpy(toks)})
+    assert got.shape == want.shape and float(aux) == 0.0
+    assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < TOL
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("window", [0, 4])
+def test_qkv_bias_forward_matches_jax(impl, window):
+    cfg = dataclasses.replace(jax_get_config("qwen2.5-32b").reduced(),
+                              n_kv_heads=2, attn_impl=impl)
+    assert cfg.qkv_bias
+    params, model = _biased_pair(cfg)
+    assert float(model.blocks[0].bk.abs().min()) > 0
+    toks = _tokens(cfg, 2, 12)
+    want, _ = jax_forward(params, cfg, {"tokens": jnp.asarray(toks)},
+                          window=window)
+    got, _ = tm.forward(model, cfg, {"tokens": torch.from_numpy(toks)},
+                        window=window)
+    assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < TOL
+    # the biases matter: the same weights without them give other logits
+    for blk in model.blocks:
+        for name in ("bq", "bk", "bv"):
+            getattr(blk, name).zero_()
+    unbiased, _ = tm.forward(model, cfg, {"tokens": torch.from_numpy(toks)},
+                             window=window)
+    assert float(np.max(np.abs(unbiased.numpy() - np.asarray(want)))) > 1e-2
+
+
+def test_qkv_bias_decode_step_matches_jax():
+    cfg = dataclasses.replace(jax_get_config("qwen2.5-32b").reduced(),
+                              n_kv_heads=2)
+    params, model = _biased_pair(cfg)
+    B, S = 2, 8
+    toks = _tokens(cfg, B, S, seed=1)
+    jcache, _ = jax_init_cache(cfg, B, S + 2)
+    cache = init_cache(cfg, B, S + 2, device="cpu")
+    for i in range(S):
+        want, jcache = jax_decode_step(params, cfg, jcache,
+                                       jnp.asarray(toks[:, i]), jnp.int32(i))
+        got, cache = tm.decode_step(model, cfg, cache,
+                                    torch.from_numpy(toks[:, i]), i)
+        assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < TOL
+    full, _ = tm.forward(model, cfg, {"tokens": torch.from_numpy(toks)})
+    assert float((got - full[:, -1]).abs().max()) < TOL
+
+
+def test_qkv_bias_params_start_at_zero():
+    cfg = get_config("qwen2.5-32b").reduced()
+    blk = tm.init_params(cfg, seed=0, device="cpu").blocks[0]
+    assert tuple(blk.bq.shape) == (cfg.n_heads, cfg.head_dim)
+    assert tuple(blk.bk.shape) == tuple(blk.bv.shape) == (cfg.n_kv_heads,
+                                                          cfg.head_dim)
+    assert not any(float(getattr(blk, n).abs().max()) for n in
+                   ("bq", "bk", "bv"))

@@ -25,10 +25,16 @@ def _prompts(cfg, n, seed=0):
     return [rs.randint(0, cfg.vocab_size, size=3 + i % 4) for i in range(n)]
 
 
-def test_engine_tokens_identical_to_jax():
-    """Same weights, same requests: the same greedy tokens.  Five requests
-    on two slots exercise chunking, left-padding and ragged max_new."""
-    cfg = _cfg()
+def _moe_cfg(arch):
+    """qwen3-moe with 32 experts, top-8 (the grouped form, as at full
+    width); grok-1 as ``reduced()`` makes it (the dense form)."""
+    if arch == "qwen3-moe-235b-a22b":
+        return dataclasses.replace(jax_get_config(arch).reduced(
+            max_d_model=128, max_experts=32), top_k=8)
+    return jax_get_config(arch).reduced()
+
+
+def _same_tokens_as_jax(cfg):
     params, _ = jax_init_params(cfg, jax.random.PRNGKey(0))
     model = params_from_numpy(jax.tree.map(np.asarray, params), cfg,
                               device="cpu")
@@ -43,6 +49,18 @@ def test_engine_tokens_identical_to_jax():
     for g, w in zip(got, want):
         assert len(g.out) == g.max_new
         np.testing.assert_array_equal(g.out, np.asarray(w.out))
+
+
+def test_engine_tokens_identical_to_jax():
+    """Same weights, same requests: the same greedy tokens.  Five requests
+    on two slots exercise chunking, left-padding and ragged max_new."""
+    _same_tokens_as_jax(_cfg())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b"])
+def test_moe_engine_tokens_identical_to_jax(arch):
+    """The same for the moe family: grouped (qwen3) and dense (grok)."""
+    _same_tokens_as_jax(_moe_cfg(arch))
 
 
 def test_engine_defaults_to_the_card():
@@ -79,4 +97,12 @@ def test_launcher_serves_rwkv_on_cpu(capsys):
                         "--requests", "2", "--max-new", "3",
                         "--max-seq", "16"])
     assert rep["arch"] == "rwkv6-7b-smoke"
+    assert rep["requests"] == 2 and rep["tokens"] == 6
+
+
+def test_launcher_serves_moe_on_cpu(capsys):
+    rep = tlaunch.main(["--arch", "qwen3-moe-235b-a22b", "--device", "cpu",
+                        "--requests", "2", "--max-new", "3",
+                        "--max-seq", "16"])
+    assert rep["arch"] == "qwen3-moe-235b-a22b-smoke"
     assert rep["requests"] == 2 and rep["tokens"] == 6
