@@ -7,8 +7,9 @@ Builds every hand-written kernel from ``src/repro_torch/kernels/csrc`` and
 drives the port's paths with random weights and traces from ``--seed``:
 llama3.2-1b and rwkv6-7b at full width and depth (flash attention K1, the
 WKV6 scan K2, RMSNorm K3), qwen3-moe-235b-a22b, grok-1-314b and
-qwen2.5-32b at full width and cut depth (K1, K3), and the Hadar decision
-path on the fig5 shape
+qwen2.5-32b at full width and cut depth (K1, K3), hymba-1.5b, internvl2-2b
+and whisper-tiny at full width and depth (K1, and K3 but for whisper's
+LayerNorms), and the Hadar decision path on the fig5 shape
 (FIND_ALLOC K4, the greedy commit K5), through the round and the event
 engine, HadarE's forked copies and the scheduling env, with and without
 faults, the policy-comparison table under the runtime sanitizer, and two
@@ -27,9 +28,13 @@ non-zero.
    K1: the shape sweep of the JAX package's kernel tests, the llama3.2-1b
    prefill shapes, the prefill shapes of qwen3-moe (64 q heads over 4 kv
    heads, D=64), grok-1 (48/8, D=128), granite-34b (48/1, MQA) and
-   qwen2.5-32b (40/8) at 4 x 1024 tokens in the model layout, ragged S=100 and S=1000, a window of 300 at S=2048
-   (its lower edge inside a key tile) and D=128 at S=1024 (a row in two
-   swizzle boxes); every case runs twice and the two outputs must be
+   qwen2.5-32b (40/8) at 4 x 1024 tokens in the model layout, hymba-1.5b
+   (25/5, D=64, window 2048) at 4 x 1024, internvl2-2b (16/8, D=128) at
+   4 x 1280 (256 patches + 1024 tokens) and whisper-tiny's decoder (6/6,
+   D=64, no window) at 4 x 448, ragged S=100 and S=1000, a window of 300
+   at S=2048 (its lower edge inside a key tile), D=128 at S=1024 (a row in
+   two swizzle boxes) and hymba's shape at S=4096, where its 2048 window
+   bites; every case runs twice and the two outputs must be
    bitwise equal; timed beside ``scaled_dot_product_attention`` (a
    yardstick only; the port never calls it).
    K2: the sweep of the JAX package's rwkv6 tests in float32 and bfloat16,
@@ -187,7 +192,7 @@ non-zero.
    first float32 layer, the JAX package's property of its MoE forms:
    ``moe_ffn_grouped``, ``_flat`` and ``_dense`` within 2e-4 of the
    largest output at capacity factor 8, the grouped form twice bitwise
-   equal, and finite at factor 0.05.  Runs after phase 5, as do 14-16.
+   equal, and finite at factor 0.05.  Runs after phase 5, as do 14-22.
 14. serve_moe -- phase 3 for qwen3-moe at 8 layers; decode takes the
    grouped form at S = 1 and launches no kernel.
 15. prefill_grok -- phase 13 for grok-1-314b at full width (d_model 6144,
@@ -197,6 +202,30 @@ non-zero.
 16. prefill_qwen2 -- phase 2 for qwen2.5-32b at full width (d_model 5120,
    40/8 heads of 128, QKV bias drawn non-zero from the seed), 16 of its 64
    layers: K1 16 times and K3 33 times; float32 at depths 1 and 2.
+17. prefill_hymba -- phase 2 for hymba-1.5b at full width and depth (32
+   layers, d_model 1600, 25/5 heads of 64, window 2048, a mamba mix of
+   inner width 3200 and state 16 beside the attention; the scan is plain
+   PyTorch, a log-step scan of 10 whole-tensor steps at S = 1024): K1 32
+   times and K3 129 times (4 a layer: ln1, the two branches' ln_pa and
+   ln_pm, ln2; + the final norm); float32 at depths 1 and 2; and the
+   float32 model at 2 layers decoded token by token from a zero cache
+   against ``forward`` through both paths on 64 tokens, within 2e-3 (the
+   one place where mamba's conv and SSM state carry runs on the card).
+18. serve_hymba -- phase 3 for hymba at full depth; no kernel launches.
+19. prefill_internvl2 -- phase 2 for internvl2-2b at full width and depth
+   (24 layers, d_model 2048, 16/8 heads of 128, untied 92,553-wide
+   unembed), 256 seeded patch embeddings ahead of each 1024-token text:
+   K1 24 times at S = 1280 and K3 49 times; float32 at depths 1 and 2.
+20. serve_internvl2 -- phase 3 for internvl2; the served model sees text.
+21. prefill_whisper -- phase 2 for whisper-tiny at full width and depth
+   (4 + 4 layers, d_model 384, 6/6 heads of 64) on 1500 seeded frames
+   and 448 decoder tokens: K1 4 times (the decoder's causal self
+   attention; the bidirectional encoder and the cross attention take the
+   plain path, as in the JAX package), K3 none (LayerNorms); each decoder
+   layer checked on the cross K/V of the encoder's output; float32 at
+   depths 1, 2 and 4.
+22. serve_whisper -- phase 3 for whisper; the decoder cross-attends the
+   zero cross K/V, as the JAX package's engine does.
 
 Full-depth agreement of the two model paths is printed, not gated: the
 random init makes a deep stack chaotic.  It prints a ``{"kernels":
@@ -241,12 +270,18 @@ SWEEP = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
 MASKS = [(True, 0), (True, 96), (False, 0)]
 # llama3.2-1b: 32 q heads, 8 kv heads, head dim 64, window 8192
 LLAMA_PREFILL = (4, 32, 8, 1024, 64, "bfloat16", True, 8192)
-# the attention of the other decoder configs' prefills on 4 x 1024 tokens
-# (Hq, Hkv, head dim): qwen3-moe G = 16, grok-1 G = 6, granite-34b MQA
-# (G = 48), qwen2.5-32b G = 5
-MODEL_ATTENTION = {"qwen3-moe-235b-a22b": (64, 4, 64),
-                   "grok-1-314b": (48, 8, 128), "granite-34b": (48, 1, 128),
-                   "qwen2.5-32b": (40, 8, 128)}
+# the attention of the other configs' prefills at batch 4 (Hq, Hkv, head
+# dim, sequence, window): qwen3-moe G = 16, grok-1 G = 6, granite-34b MQA
+# (G = 48), qwen2.5-32b G = 5 on 1024 tokens; hymba-1.5b G = 5 on 1024
+# tokens with its 2048 window; internvl2-2b G = 2 on 256 patches + 1024
+# tokens; whisper-tiny's decoder (6/6) on its 448-token context, no window
+MODEL_ATTENTION = {"qwen3-moe-235b-a22b": (64, 4, 64, 1024, 8192),
+                   "grok-1-314b": (48, 8, 128, 1024, 8192),
+                   "granite-34b": (48, 1, 128, 1024, 8192),
+                   "qwen2.5-32b": (40, 8, 128, 1024, 8192),
+                   "hymba-1.5b": (25, 5, 64, 1024, 2048),
+                   "internvl2-2b": (16, 8, 128, 1280, 8192),
+                   "whisper-tiny": (6, 6, 64, 448, 0)}
 # K2: the JAX package's rwkv6 sweep (tests/test_kernels.py) and the
 # rwkv6-7b prefill shape (64 heads of 64, 4 x 1024 tokens)
 RWKV_SWEEP = [(1, 2, 64, 16), (2, 2, 128, 32), (1, 1, 96, 64)]
@@ -448,15 +483,16 @@ def kernel_cases():
              for (B, Hq, Hkv, S, D) in SWEEP
              for dt in ("float32", "bfloat16") for c, w in MASKS]
     cases += [LLAMA_PREFILL + (True, 20)]
-    cases += [(4, Hq, Hkv, 1024, D, "bfloat16", True, 8192, True, 20)
-              for Hq, Hkv, D in MODEL_ATTENTION.values()]
+    cases += [(4, Hq, Hkv, S, D, "bfloat16", True, w, True, 20)
+              for Hq, Hkv, D, S, w in MODEL_ATTENTION.values()]
     cases += [(4, 32, 8, 2048, 64, "bfloat16", True, 8192, False, 20),
               (1, 32, 8, 1000, 64, "bfloat16", True, 8192, False, 20),
               (1, 32, 8, 1000, 64, "bfloat16", False, 0, False, 10),
               (1, 32, 8, 1000, 64, "float32", False, 0, False, 10),
               (2, 4, 2, 100, 32, "bfloat16", False, 0, False, 10),
               (1, 32, 8, 2048, 64, "bfloat16", True, 300, False, 10),
-              (2, 16, 4, 1024, 128, "bfloat16", True, 0, False, 10)]
+              (2, 16, 4, 1024, 128, "bfloat16", True, 0, False, 10),
+              (1, 25, 5, 4096, 64, "bfloat16", True, 2048, False, 10)]
     return cases
 
 
@@ -1504,18 +1540,19 @@ def _top1(a, b) -> float:
     return float((a.argmax(-1) == b.argmax(-1)).float().mean())
 
 
-def _depth_agreement(model, cfg, tokens, depth: int) -> dict:
+def _depth_agreement(model, cfg, batch, depth: int) -> dict:
     """Kernel path vs einsum path, forward through the first ``depth``
-    layers only: top-1 agreement and max |logit difference|."""
+    layers only (and the whole encoder): top-1 agreement and max |logit
+    difference|."""
     from types import SimpleNamespace
     from repro_torch.models.model import forward
     part = SimpleNamespace(**dict(model.named_parameters(recurse=False)),
-                           blocks=model.blocks[:depth])
+                           blocks=model.blocks[:depth],
+                           enc=getattr(model, "enc", None))
     cfg = dataclasses.replace(cfg, n_layers=depth)
     lk, _ = forward(part, dataclasses.replace(cfg, attn_impl="pallas"),
-                    {"tokens": tokens})
-    lx, _ = forward(part, dataclasses.replace(cfg, attn_impl="xla"),
-                    {"tokens": tokens})
+                    batch)
+    lx, _ = forward(part, dataclasses.replace(cfg, attn_impl="xla"), batch)
     return {"depth": depth, "top1": _top1(lk, lx),
             "max_abs_logit_diff": float((lk.float() - lx.float()).abs().max())}
 
@@ -1557,9 +1594,11 @@ def _moe_inputs():
         yield inputs
 
 
-def _layerwise(model, cfg, tokens, check) -> dict:
+def _layerwise(model, cfg, batch, check) -> dict:
     """Every layer on the same input (the plain path's output of the layer
-    before), so that nothing compounds across layers:
+    before; the first takes ``forward``'s input, the vlm's patches ahead
+    of the text, and every encdec layer the cross K/V of the encoder's
+    output), so that nothing compounds across layers:
 
     - ``block_rel_diff``: the layer through both paths, max |difference|
       over max |output|;
@@ -1571,22 +1610,25 @@ def _layerwise(model, cfg, tokens, check) -> dict:
       differ.  A token across a top-k or capacity edge
       legitimately changes by O(1), so ``block_rel_diff`` is then taken
       over the other tokens only."""
-    import torch
+    from repro_torch.models.attention import encoder_kv
     from repro_torch.models.blocks import block_fwd
+    from repro_torch.models.model import encode, prefill_inputs
     win = cfg.sliding_window
     fk = block_fwd(dataclasses.replace(cfg, attn_impl="pallas"), win)
     fx = block_fwd(dataclasses.replace(cfg, attn_impl="xla"), win)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = model.embed[tokens]
+    x, positions, _ = prefill_inputs(model, cfg, batch)
+    enc = (encode(model, cfg, batch["frames"]) if cfg.family == "encdec"
+           else None)
     res = {"block_rel_diff": [], "kernel": []}
     if cfg.family == "moe":
-        res.update(tokens=tokens.numel(), routed_differently=[],
+        res.update(tokens=batch["tokens"].numel(), routed_differently=[],
                    experts_differ=[])
     for blk in model.blocks:
+        extra = None if enc is None else encoder_kv(blk, enc)
         res["kernel"].append(check(blk, x, positions, cfg))
         with _moe_inputs() as inputs:
-            yk, _ = fk(blk, x, positions)
-            yx, _ = fx(blk, x, positions)
+            yk, _ = fk(blk, x, positions, extra)
+            yx, _ = fx(blk, x, positions, extra)
         diff = (yk.float() - yx.float()).abs().amax(-1)        # (B, S)
         size = yx.float().abs().amax(-1)
         if inputs:
@@ -1632,12 +1674,16 @@ def _attention_check(blk, x, positions, cfg) -> dict:
     is not (D = 128) two float32 orders round apart by ~2e-2, so the
     float32 gate is then the kernel's error against the float64
     attention, within ``F64_FACTOR`` times the plain version's own
-    (``plain_f64_abs_err``)."""
+    (``plain_f64_abs_err``).  An encdec decoder layer attends after a
+    LayerNorm and with no window, as its block does."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import attention as attn
-    from repro_torch.models.layers import apply_rope, rmsnorm
-    win = cfg.sliding_window
-    q, k, v = attn.qkv(blk, rmsnorm(x, blk.ln1, cfg.norm_eps), cfg)
+    from repro_torch.models.layers import apply_rope, layernorm, rmsnorm
+    if cfg.family == "encdec":
+        win, h = 0, layernorm(x, blk.ln1, blk.lnb1, cfg.norm_eps)
+    else:
+        win, h = cfg.sliding_window, rmsnorm(x, blk.ln1, cfg.norm_eps)
+    q, k, v = attn.qkv(blk, h, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.flash_attention(q, k, v, causal=True, window=win)
@@ -1698,7 +1744,7 @@ def _check_launches(phase: str, got: dict, want: dict):
         raise RuntimeError(f"{phase}: kernel launches {got}, want {want}")
 
 
-def _forward_timed(model, cfg, tokens, want: dict):
+def _forward_timed(model, cfg, batch, want: dict):
     """``FORWARD_REPS`` warmed-up ``forward`` calls, each timed on the
     host's clock, with every launch count set to 0 just before it and read
     just after (the main path's runs when ``cfg.attn_impl`` is "pallas");
@@ -1707,19 +1753,79 @@ def _forward_timed(model, cfg, tokens, want: dict):
     swings by a tenth or more with the host."""
     import torch
     from repro_torch.models.model import forward
-    forward(model, cfg, {"tokens": tokens})  # warm-up (cuBLAS, allocator)
+    forward(model, cfg, batch)  # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
     walls = []
     for _ in range(FORWARD_REPS):
         zero_launches()  # the run starts here
         t0 = time.perf_counter()
-        logits, _ = forward(model, cfg, {"tokens": tokens})
+        logits, _ = forward(model, cfg, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         launches = read_launches()  # ... and ends here
         _check_launches(f"{cfg.name} forward ({cfg.attn_impl})", launches,
                         want)
     return logits, statistics.median(walls), launches, walls
+
+
+# The parts of a forward that ``_forward_split`` times: (name, module,
+# function); each is called through its module's attribute, so a patch of
+# the attribute sees every call.  Parts nest: ssm_scan runs inside
+# mamba_mix, and encode holds the encoder's self attention, which
+# self_attention counts too.
+SPLIT_PARTS = (
+    ("encode", "repro_torch.models.model", "encode"),
+    ("self_attention", "repro_torch.models.attention", "self_attention"),
+    ("cross_attention", "repro_torch.models.attention", "cross_attention"),
+    ("mamba_mix", "repro_torch.models.mamba", "mamba_mix"),
+    ("ssm_scan", "repro_torch.models.mamba", "_ssm_scan"),
+    ("time_mix", "repro_torch.models.rwkv", "time_mix"),
+    ("channel_mix", "repro_torch.models.rwkv", "channel_mix"),
+    ("moe_ffn", "repro_torch.models.moe", "moe_ffn"),
+    ("swiglu", "repro_torch.models.blocks", "swiglu"),
+    ("gelu_mlp", "repro_torch.models.blocks", "gelu_mlp"),
+    ("unembed", "repro_torch.models.model", "_unembed"))
+
+
+def _forward_split(model, cfg, batch) -> dict:
+    """Where one ``forward`` spends the card's time: a CUDA event pair
+    around each call of every ``SPLIT_PARTS`` part (the card's ms from the
+    call's first operation to its last, idle gaps included), summed by
+    part, and one pair around the whole forward (``forward_ms``).  Parts
+    the family does not call are left out."""
+    import importlib
+    import torch
+    from repro_torch.models.model import forward
+    spans = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kwargs)
+            e1.record()
+            spans.setdefault(name, []).append((e0, e1))
+            return out
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name, mod, attr in SPLIT_PARTS:
+            mod = importlib.import_module(mod)
+            stack.enter_context(mock.patch.object(
+                mod, attr, timed(name, getattr(mod, attr))))
+        torch.cuda.synchronize()
+        f0 = torch.cuda.Event(enable_timing=True)
+        f1 = torch.cuda.Event(enable_timing=True)
+        f0.record()
+        forward(model, cfg, batch)
+        f1.record()
+        torch.cuda.synchronize()
+    res = {"forward_ms": f0.elapsed_time(f1)}
+    for name, pairs in spans.items():
+        res[f"{name}_ms"] = sum(a.elapsed_time(b) for a, b in pairs)
+        res[f"{name}_calls"] = len(pairs)
+    return res
 
 
 def _check_logits(name, lg, shape):
@@ -1733,14 +1839,18 @@ def _check_logits(name, lg, shape):
 # phases 2, 4, 13, 15 and 16: prefill
 # ---------------------------------------------------------------------------
 
-# Each block normalises twice (ln1 before attention or the time mix, ln2
-# before the MLP or the channel mix: models/blocks.py ``block_fwd``) and
-# ``forward`` once more (the final norm: models/model.py).
-NORMS_PER_BLOCK = 2
+# The RMSNorms of a block (models/blocks.py ``block_fwd``): ln1 before the
+# attention or the time mix and ln2 before the MLP or the channel mix; a
+# hybrid block also normalises its attention and mamba branches (ln_pa,
+# ln_pm).  ``forward`` adds the final norm.  encdec's norms are LayerNorms,
+# which no kernel computes, so its kernel path launches no K3.
+NORMS_PER_BLOCK = {"dense": 2, "vlm": 2, "moe": 2, "ssm": 2, "hybrid": 4,
+                   "encdec": 0}
 
 
 def norms_per_forward(cfg) -> int:
-    return NORMS_PER_BLOCK * cfg.n_layers + 1
+    per = NORMS_PER_BLOCK[cfg.family]
+    return per * cfg.n_layers + 1 if per else 0
 
 
 def _norm_times(model, rows: int, d: int) -> dict:
@@ -1758,28 +1868,47 @@ def _norm_times(model, rows: int, d: int) -> dict:
 
 # Per model path: its kernel (one launch per layer of a kernel-path
 # ``forward``) and the per-layer check of it, the depth the bf16 model is
-# cut to (None: full), the float32 model's depth (None: full) and the
-# depths at which its two paths are compared.  Every model runs at its
-# published width.  Cuts: qwen3-moe 8 of 94 layers (4.90 GB of weights a
-# layer, 2.49 GB of untied embeddings: 41.7 GB) and grok-1 4 of 64 (9.84
-# GB a layer, 3.22 GB of embeddings: 42.6 GB), so that the bf16 model and
-# a forward's working set fit in the card's 80 GB, and the float32 draws
-# (twice the bytes) at 2 and 1 layers; qwen2.5-32b 16 of 64 (0.98 GB a
-# layer) for the smoke's time.
+# cut to (None: full), the float32 model's depth (None: full), the depths
+# at which its two paths are compared and the text's length (4 sequences
+# of it; internvl2 puts its 256 patches ahead, whisper's encoder reads
+# 1500 frames).  Every model runs at its published width.  Cuts:
+# qwen3-moe 8 of 94 layers (4.90 GB of weights a layer, 2.49 GB of untied
+# embeddings: 41.7 GB) and grok-1 4 of 64 (9.84 GB a layer, 3.22 GB of
+# embeddings: 42.6 GB), so that the bf16 model and a forward's working set
+# fit in the card's 80 GB, and the float32 draws (twice the bytes) at 2
+# and 1 layers; qwen2.5-32b 16 of 64 (0.98 GB a layer) for the smoke's
+# time.  hymba-1.5b, internvl2-2b and whisper-tiny run at full depth.
 PREFILL = {
     "llama3.2-1b": {"kernel": "flash_attention", "check": _attention_check,
                     "layers": None, "f32_layers": None,
-                    "depths": (1, 2, 4, 8, 16)},
+                    "depths": (1, 2, 4, 8, 16), "seq": 1024},
     "rwkv6-7b": {"kernel": "rwkv6_scan", "check": _scan_check,
-                 "layers": None, "f32_layers": 2, "depths": (1, 2)},
+                 "layers": None, "f32_layers": 2, "depths": (1, 2),
+                 "seq": 1024},
     "qwen3-moe-235b-a22b": {"kernel": "flash_attention",
                             "check": _attention_check, "layers": 8,
-                            "f32_layers": 2, "depths": (1, 2)},
+                            "f32_layers": 2, "depths": (1, 2), "seq": 1024},
     "grok-1-314b": {"kernel": "flash_attention", "check": _attention_check,
-                    "layers": 4, "f32_layers": 1, "depths": (1,)},
+                    "layers": 4, "f32_layers": 1, "depths": (1,),
+                    "seq": 1024},
     "qwen2.5-32b": {"kernel": "flash_attention", "check": _attention_check,
-                    "layers": 16, "f32_layers": 2, "depths": (1, 2)},
+                    "layers": 16, "f32_layers": 2, "depths": (1, 2),
+                    "seq": 1024},
+    "hymba-1.5b": {"kernel": "flash_attention", "check": _attention_check,
+                   "layers": None, "f32_layers": 2, "depths": (1, 2),
+                   "seq": 1024},
+    "internvl2-2b": {"kernel": "flash_attention", "check": _attention_check,
+                     "layers": None, "f32_layers": 2, "depths": (1, 2),
+                     "seq": 1024},
+    "whisper-tiny": {"kernel": "flash_attention", "check": _attention_check,
+                     "layers": None, "f32_layers": None,
+                     "depths": (1, 2, 4), "seq": 448},
 }
+# the tokens of the float32 decode-against-forward check of the hybrid
+# family (``_decode_check``), where mamba's state carry runs on the card,
+# and its limit (tests/test_decode_consistency.py)
+DECODE_CHECK_SEQ = 64
+DECODE_TOL = 2e-3
 # the share of a float32 prefill's tokens that the kernel and the plain
 # path may route differently at a layer (K1 and the plain attention differ
 # by ~1e-7 relative, which moves a token across a top-k or capacity edge
@@ -1864,11 +1993,72 @@ def _moe_forms(model, cfg, tokens) -> dict:
     return res
 
 
+def prefill_batch(cfg, seq: int, seed: int, device="cuda") -> dict:
+    """4 sequences of ``seq`` tokens from ``seed + 1``; for vlm
+    ``cfg.enc_seq`` patch embeddings and for encdec ``cfg.enc_seq`` frame
+    embeddings, N(0, 1) from the same generator, in float32 (the stub
+    frontends' outputs; ``_as_model_dtype`` casts them)."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, seq),
+                                     generator=gen, device=device)}
+    key = {"vlm": "patches", "encdec": "frames"}.get(cfg.family)
+    if key:
+        batch[key] = torch.randn((4, cfg.enc_seq, cfg.d_model),
+                                 generator=gen, device=device)
+    return batch
+
+
+def _as_model_dtype(batch: dict, cfg) -> dict:
+    from repro_torch.device import torch_dtype
+    return {k: v if k == "tokens" else v.to(torch_dtype(cfg.dtype))
+            for k, v in batch.items()}
+
+
+def _decode_check(model, cfg, batch) -> dict:
+    """Token by token through ``decode_step`` from a zero cache against
+    ``forward``'s logits on the same tokens, through both paths: the
+    state carry of the decode path (for the hybrid family the KV cache,
+    the mamba conv state and the float32 SSM state) against the prefill's
+    attention and log-step scan.  Raises over ``DECODE_TOL``."""
+    import torch
+    from repro_torch.models.cache import init_cache
+    from repro_torch.models.model import decode_step, forward
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, S, device=tokens.device)
+    steps = []
+    t0 = time.perf_counter()
+    for i in range(S):
+        logits, cache = decode_step(model, cfg, cache, tokens[:, i], i)
+        steps.append(logits)
+    dec = torch.stack(steps, 1)
+    if dec.is_cuda:
+        torch.cuda.synchronize()
+    res = {"layers": cfg.n_layers, "batch": B, "seq": S, "dtype": cfg.dtype,
+           "decode_s": time.perf_counter() - t0, "tol": DECODE_TOL,
+           "max_abs_state": {k: float(v.float().abs().max())
+                             for k, v in cache.items()}}
+    for impl in ("pallas", "xla"):
+        full, _ = forward(model, dataclasses.replace(cfg, attn_impl=impl),
+                          batch)
+        res[f"{impl}_max_abs_diff"] = float((dec - full).abs().max())
+    log(f"[prefill] {cfg.name} decode against forward: {json.dumps(res)}")
+    worst = max(res["pallas_max_abs_diff"], res["xla_max_abs_diff"])
+    if not worst < DECODE_TOL:
+        raise RuntimeError(f"{cfg.name} float32: decode_step differs from "
+                           f"forward by {worst:.3g}, want < {DECODE_TOL}")
+    return res
+
+
 def phase_prefill(seed: int, arch: str):
-    """``forward`` on 4 x 1024 tokens: bf16 at full width and at full
-    depth or ``PREFILL``'s cut, through the kernel and the plain path,
-    then the same draws in float32 (for the moe family with its routing
-    compared and its three MoE forms checked, ``_moe_forms``)."""
+    """``forward`` on 4 sequences of ``PREFILL``'s length (with the vlm's
+    patches or the encdec's frames): bf16 at full width and at full depth
+    or ``PREFILL``'s cut, through the kernel and the plain path, then the
+    same draws in float32 (for the moe family with its routing compared
+    and its three MoE forms checked, ``_moe_forms``; for the hybrid family
+    with decode against forward, ``_decode_check``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import blocks
@@ -1881,13 +2071,13 @@ def phase_prefill(seed: int, arch: str):
         base = dataclasses.replace(base, n_layers=spec["layers"])
         log(f"[prefill] {arch}: full width, {base.n_layers} of "
             f"{full_layers} layers (bf16), {spec['f32_layers']} in float32")
-    B, S = 4, 1024
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed + 1)
-    tokens = torch.randint(0, base.vocab_size, (B, S), generator=gen,
-                           device="cuda")
-    res = {"arch": arch, "batch": B, "seq": S, "layers": base.n_layers,
-           "full_layers": full_layers}
+    batch32 = prefill_batch(base, spec["seq"], seed)
+    batch = _as_model_dtype(batch32, base)
+    B, S = batch["tokens"].shape
+    prefix = base.enc_seq if base.family == "vlm" else 0
+    res = {"arch": arch, "batch": B, "seq": S, "prefix": prefix,
+           "frames": base.enc_seq if base.family == "encdec" else 0,
+           "layers": base.n_layers, "full_layers": full_layers}
     t_phase = time.perf_counter()
 
     # bf16, full depth or the cut: the main path
@@ -1903,18 +2093,25 @@ def phase_prefill(seed: int, arch: str):
     norms = norms_per_forward(base)
     log(f"[prefill] {arch}: the kernel path must launch "
         f"{spec['kernel']} {base.n_layers} times (one per layer) and "
-        f"rmsnorm {norms} times ({NORMS_PER_BLOCK} per layer + the final "
-        f"norm) per forward; the plain path none")
+        f"rmsnorm {norms} times ({NORMS_PER_BLOCK[base.family]} per layer "
+        f"+ the final norm, none for LayerNorms) per forward; the plain "
+        f"path none")
     logits_k, wall_k, launches, walls_k = _forward_timed(
-        model, cfg_k, tokens,
+        model, cfg_k, batch,
         {**none, spec["kernel"]: base.n_layers, "rmsnorm": norms})
-    logits_x, wall_x, _, _ = _forward_timed(model, cfg_x, tokens, none)
+    logits_x, wall_x, _, _ = _forward_timed(model, cfg_x, batch, none)
     # the kernel path with the plain norm in place of K3: what K3 saves
-    with mock.patch.object(blocks, "norm_fn", lambda cfg: plain_norm):
-        _, wall_p, _, _ = _forward_timed(model, cfg_k, tokens,
-                                      {**none, spec["kernel"]: base.n_layers})
+    wall_p = None
+    if norms:
+        with mock.patch.object(blocks, "norm_fn", lambda cfg: plain_norm):
+            _, wall_p, _, _ = _forward_timed(
+                model, cfg_k, batch, {**none, spec["kernel"]: base.n_layers})
     for name, lg in (("bf16 pallas", logits_k), ("bf16 xla", logits_x)):
-        _check_logits(name, lg, (*tokens.shape, base.vocab_size))
+        _check_logits(name, lg, (B, S, base.vocab_size))
+    res["bf16_pallas_split"] = _forward_split(model, cfg_k, batch)
+    log(f"[prefill] {arch}: kernel-path forward by part "
+        f"{json.dumps(res['bf16_pallas_split'])}")
+    rows = B * (prefix + S)
     res.update(launches=launches,
                bf16_max_abs_logit_diff=float(
                    (logits_k.float() - logits_x.float()).abs().max()),
@@ -1924,11 +2121,12 @@ def phase_prefill(seed: int, arch: str):
                bf16_pallas_wall_s=wall_k, bf16_pallas_wall_s_runs=walls_k,
                bf16_xla_wall_s=wall_x,
                bf16_pallas_plain_norm_wall_s=wall_p,
-               rmsnorm=_norm_times(model, B * S, base.d_model))
+               rmsnorm=_norm_times(model, rows, base.d_model) if norms
+               else None)
     log(f"[prefill] {arch}: launches per kernel-path forward {launches}")
     del logits_k, logits_x
-    res["bf16_layerwise"] = _layerwise(model, base, tokens, spec["check"])
-    res["bf16_depth_1"] = _depth_agreement(model, base, tokens, 1)
+    res["bf16_layerwise"] = _layerwise(model, base, batch, spec["check"])
+    res["bf16_depth_1"] = _depth_agreement(model, base, batch, 1)
     del model
     torch.cuda.empty_cache()
 
@@ -1942,15 +2140,20 @@ def phase_prefill(seed: int, arch: str):
     model32 = init_params(cfg32, seed, device="cuda")
     if base.qkv_bias:
         _draw_biases(model32, seed + 2)
-    res["f32_depth"] = [_depth_agreement(model32, cfg32, tokens, n)
+    res["f32_depth"] = [_depth_agreement(model32, cfg32, batch32, n)
                         for n in spec["depths"]]
-    res["f32_layerwise"] = _layerwise(model32, cfg32, tokens, spec["check"])
+    res["f32_layerwise"] = _layerwise(model32, cfg32, batch32, spec["check"])
     if base.family == "moe":
-        res["f32_moe_forms"] = _moe_forms(model32, cfg32, tokens)
+        res["f32_moe_forms"] = _moe_forms(model32, cfg32, batch["tokens"])
+    if base.family == "hybrid":
+        short = {k: v[:, :DECODE_CHECK_SEQ] if k == "tokens" else v
+                 for k, v in batch32.items()}
+        res["f32_decode"] = _decode_check(model32, cfg32, short)
     del model32
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t_phase
     log("[prefill] " + json.dumps(res))
+    log(f"[prefill] {arch}: phase took {res['phase_s']:.1f} s")
     if base.family == "moe":
         moved = max(res["f32_layerwise"]["routed_differently"])
         if not moved <= MAX_ROUTED_DIFFERENTLY * B * S:
@@ -2888,6 +3091,17 @@ def main(argv=None) -> int:
     prefill_qwen2 = phase_prefill(args.seed, "qwen2.5-32b")
     log(f"[prefill] the phases prefill_moe, serve_moe, prefill_grok and "
         f"prefill_qwen2 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    families = {}
+    for arch, name in (("hymba-1.5b", "hymba"), ("internvl2-2b", "internvl2"),
+                       ("whisper-tiny", "whisper")):
+        t1 = time.perf_counter()
+        families[f"prefill_{name}"] = phase_prefill(args.seed, arch)
+        families[f"serve_{name}"] = phase_serve(args.seed, arch)
+        log(f"[prefill] phases prefill_{name} and serve_{name} took "
+            f"{time.perf_counter() - t1:.1f} s")
+    log(f"[prefill] the hybrid, vlm and encdec phases took "
+        f"{time.perf_counter() - t0:.1f} s")
     schedule = phase_schedule()
     sim, rounds_plain = phase_simulate()
     events, events_fields = phase_events()
@@ -2919,16 +3133,18 @@ def main(argv=None) -> int:
     # K1 and K3 per forward of each model path, and K1 at each config's
     # attention shape (``MODEL_ATTENTION``)
     forwards = {r["arch"]: r["launches"] for r in (
-        prefill, prefill_rwkv, prefill_moe, prefill_grok, prefill_qwen2)}
+        prefill, prefill_rwkv, prefill_moe, prefill_grok, prefill_qwen2,
+        *(families[f"prefill_{name}"] for name in ("hymba", "internvl2",
+                                                   "whisper")))}
     for k in kernels[0], kernels[2]:
         k["launches_per_forward"] = {arch: n[k["name"]]
                                      for arch, n in forwards.items()}
     kernels[0]["model_shapes"] = {
-        arch: {key: row[key] for key in ("shape", "max_rel_err", "ms",
-                                         "library_ms", "bound_ms")}
-        for arch, (Hq, Hkv, D) in MODEL_ATTENTION.items()
+        arch: {key: row[key] for key in ("shape", "window", "max_rel_err",
+                                         "ms", "library_ms", "bound_ms")}
+        for arch, (Hq, Hkv, D, S, w) in MODEL_ATTENTION.items()
         for row in rows if row.get("model_layout")
-        and row["shape"] == [4, Hq, Hkv, 1024, D]}
+        and row["shape"] == [4, Hq, Hkv, S, D] and row["window"] == w}
     for k in kernels[-2:]:
         k["event_run_launches"] = events["cuda"]["launches"][k["name"]]
         k["hadare_run_launches"] = hadare["cuda"]["launches"][k["name"]]
@@ -2946,6 +3162,7 @@ def main(argv=None) -> int:
                                    "serve_moe": serve_moe,
                                    "prefill_grok": prefill_grok,
                                    "prefill_qwen2": prefill_qwen2,
+                                   **families,
                                    "schedule": schedule, "simulate": sim,
                                    "events": events, "mini": mini,
                                    "hadare": hadare, "env": env,

@@ -6,8 +6,11 @@ same reduced config) plus ``--device``, which defaults to the card:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --requests 8 --max-new 16 [--device cpu]
 
-``--arch`` takes every ported architecture (``configs.list_archs()``: the
-dense family, qwen3-moe-235b-a22b and grok-1-314b, and rwkv6-7b).
+``--arch`` takes any of the ten architectures (``configs.list_archs()``,
+the JAX package's).  As in the JAX package, requests carry text only: a
+served vlm (internvl2-2b) sees no patches, and a served encdec
+(whisper-tiny) decoder cross-attends the zero ``xk``/``xv`` cache, which
+nothing fills.
 """
 from __future__ import annotations
 

@@ -1,16 +1,20 @@
-"""GQA attention: causal / sliding-window prefill and the decode path.
+"""GQA attention: causal / sliding-window / bidirectional prefill, the
+decoder's cross attention and the decode path.
 
 The einsum path (``cfg.attn_impl == "xla"``) is the plain version; with
-``"pallas"`` the prefill goes through ``kernels.ops.flash_attention``,
-which launches the hand-written Hopper kernel on a CUDA tensor.  ``p`` is
-a layer's ``DenseBlock`` or ``MoEBlock``: its parameters keep the JAX
-package's names and layouts (``wq`` (d, Hq, Dh), ``wk``/``wv`` (d, Hkv,
-Dh), ``wo`` (Hq, Dh, d), and with ``cfg.qkv_bias`` ``bq`` (Hq, Dh),
-``bk``/``bv`` (Hkv, Dh)).
+``"pallas"`` the causal prefill goes through ``kernels.ops.flash_attention``,
+which launches the hand-written Hopper kernel on a CUDA tensor.  The
+bidirectional (encoder) self attention and the cross attention take the
+einsum path on both, as in the JAX package.  ``p`` is a layer's block:
+its parameters keep the JAX package's names and layouts (``wq`` (d, Hq,
+Dh), ``wk``/``wv`` (d, Hkv, Dh), ``wo`` (Hq, Dh, d), and with
+``cfg.qkv_bias`` ``bq`` (Hq, Dh), ``bk``/``bv`` (Hkv, Dh)); the cross
+attention's carry the prefix ``x`` (``xwq`` ... ``xwo``).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,10 +30,12 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
-def qkv(p, x: torch.Tensor, cfg: ModelConfig):
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+def qkv(p, x: torch.Tensor, cfg: ModelConfig, pre: str = ""):
+    q, k, v = (_proj(x, getattr(p, pre + name))
+               for name in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
+        q, k, v = (t + getattr(p, pre + name)
+                   for t, name in ((q, "bq"), (k, "bk"), (v, "bv")))
     return q, k, v
 
 
@@ -58,10 +64,13 @@ def _grouped_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           mask: torch.Tensor) -> torch.Tensor:
+           mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Masked softmax attention with GQA grouping.  mask: (Sq,Sk) or
-    broadcastable to (B,1,1,Sq,Sk); True = attend."""
-    scores = _grouped_scores(q, k).float().masked_fill(~mask, NEG_INF)
+    broadcastable to (B,1,1,Sq,Sk); True = attend; None = attend to
+    every key."""
+    scores = _grouped_scores(q, k).float()
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return _grouped_out(probs, v)
 
@@ -78,17 +87,38 @@ def causal_mask(sq: int, sk: int, window: int = 0,
 
 
 def self_attention(p, x: torch.Tensor, cfg: ModelConfig,
-                   positions: torch.Tensor, window: int = 0) -> torch.Tensor:
-    """Causal prefill self-attention over the full sequence."""
-    q, k, v = qkv(p, x, cfg)
+                   positions: torch.Tensor, window: int = 0,
+                   bidirectional: bool = False,
+                   pre: str = "") -> torch.Tensor:
+    """Prefill self-attention over the full sequence: causal (K1 on the
+    kernel path), or with ``bidirectional`` unmasked and always the
+    einsum path (the encoder's)."""
+    q, k, v = qkv(p, x, cfg, pre)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if cfg.attn_impl == "pallas":
+    if bidirectional:
+        out = attend(q, k, v, None)
+    elif cfg.attn_impl == "pallas":
         out = kops.flash_attention(q, k, v, causal=True, window=window)
     else:
         S = x.shape[1]
         out = attend(q, k, v, causal_mask(S, S, window, device=x.device))
-    return _out_proj(out, p.wo)
+    return _out_proj(out, getattr(p, pre + "wo"))
+
+
+def cross_attention(p, x: torch.Tensor, kv_k: torch.Tensor,
+                    kv_v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V
+    (B, enc_seq, Hkv, Dh), cast to q's dtype; no mask."""
+    q = _proj(x, p.xwq)
+    out = attend(q, kv_k.to(q.dtype), kv_v.to(q.dtype), None)
+    return _out_proj(out, p.xwo)
+
+
+def encoder_kv(p, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross attention's K/V (B, enc_seq, Hkv, Dh) of the encoder's
+    output (B, enc_seq, d)."""
+    return _proj(enc, p.xwk), _proj(enc, p.xwv)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 """Per-layer blocks: parameters and the prefill / decode functions.
 
-``block_fwd(cfg, window)(block, x, positions)`` -> (x, aux)
+``block_fwd(cfg, window)(block, x, positions, extra)`` -> (x, aux), where
+``extra`` is the encdec layer's cross K/V and None for the others;
+``encoder_block_fwd(cfg)(block, x, positions)`` -> x;
 ``block_decode(cfg, window, seq_sharded)(block, c, x, pos)`` -> x, where
 ``c`` is the layer's cache as a dict of slices, written in place.
-Ported: the dense family (with or without QKV bias), the moe family
-(qwen3-moe, grok-1) and the ssm family (rwkv6); anything else raises
-``NotImplementedError``.
+Every family of the JAX package: dense and vlm (with or without QKV
+bias), moe, ssm (rwkv6), hybrid (attention beside a mamba mix) and encdec
+(LayerNorms, cross attention, a GELU MLP, and the encoder's blocks).
 """
 from __future__ import annotations
 
@@ -14,9 +16,10 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models import moe, rwkv
+from repro_torch.models import mamba, moe, rwkv
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Specs, fan_in, rmsnorm, swiglu
+from repro_torch.models.layers import (Specs, fan_in, gelu_mlp, layernorm,
+                                       rmsnorm, swiglu)
 
 
 def register_params(module: nn.Module, specs: Specs, device: torch.device,
@@ -28,12 +31,6 @@ def register_params(module: nn.Module, specs: Specs, device: torch.device,
             requires_grad=False))
 
 
-def _require_ported(cfg: ModelConfig):
-    if cfg.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(
-            f"blocks of the {cfg.family!r} family are not ported yet")
-
-
 class _Block(nn.Module):
     """One layer's parameters, with the JAX package's names and per-layer
     shapes (its stacked arrays without the leading layer axis).  Created
@@ -43,21 +40,29 @@ class _Block(nn.Module):
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  dtype: torch.dtype):
         super().__init__()
-        _require_ported(cfg)
         register_params(self, self.specs(cfg), device, dtype)
 
 
-def _attn_specs(cfg: ModelConfig) -> Specs:
+def _attn_specs(cfg: ModelConfig, pre: str = "") -> Specs:
     """``repro.models.attention.init_attn``: the projections, and with
     ``cfg.qkv_bias`` the biases ``bq`` (H, Dh), ``bk`` and ``bv`` (Hkv, Dh),
-    which start at zero."""
+    which start at zero; every name prefixed with ``pre`` ("x" for the
+    cross attention)."""
     d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     specs = {"wq": fan_in(d, H, Dh), "wk": fan_in(d, Hkv, Dh),
              "wv": fan_in(d, Hkv, Dh), "wo": fan_in(H, Dh, d)}
     if cfg.qkv_bias:
         specs.update(bq=((H, Dh), "zeros"), bk=((Hkv, Dh), "zeros"),
                      bv=((Hkv, Dh), "zeros"))
-    return specs
+    return {pre + name: spec for name, spec in specs.items()}
+
+
+def _gelu_mlp_specs(cfg: ModelConfig) -> Specs:
+    """``w_in`` (d, f), ``b_in`` (f,), ``w_out`` (f, d), ``b_out`` (d,):
+    the biases start at zero."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_in": fan_in(d, f), "b_in": ((f,), "zeros"),
+            "w_out": fan_in(f, d), "b_out": ((d,), "zeros")}
 
 
 class DenseBlock(_Block):
@@ -102,6 +107,53 @@ class RWKVBlock(_Block):
                 "wr_c": fan_in(d, d)}
 
 
+class HybridBlock(_Block):
+    @staticmethod
+    def specs(cfg: ModelConfig) -> Specs:
+        """``repro.models.blocks.init_blocks`` for the hybrid family
+        (blocks.py:53-61): the attention of ``DenseBlock``, the norms
+        ``ln_pa``/``ln_pm`` of its two branches, ``mamba.init_mamba``'s
+        parameters and the shared SwiGLU."""
+        d, f = cfg.d_model, cfg.d_ff
+        return {"ln1": ((d,), "ones"), "ln2": ((d,), "ones"),
+                **_attn_specs(cfg),
+                "ln_pa": ((d,), "ones"), "ln_pm": ((d,), "ones"),
+                **mamba.init_mamba(cfg),
+                "w_gate": fan_in(d, f), "w_up": fan_in(d, f),
+                "w_down": fan_in(f, d)}
+
+
+class EncDecBlock(_Block):
+    @staticmethod
+    def specs(cfg: ModelConfig) -> Specs:
+        """``repro.models.blocks.init_blocks`` for the encdec family
+        (blocks.py:39-49): LayerNorm scales ``ln1``/``ln2``/``ln_x`` and
+        biases ``lnb1``/``lnb2``/``lnb_x``, the self attention, the cross
+        attention (``xwq`` ...) and the GELU MLP."""
+        d = cfg.d_model
+        return {"ln1": ((d,), "ones"), "ln2": ((d,), "ones"),
+                **_attn_specs(cfg),
+                "ln_x": ((d,), "ones"), "lnb1": ((d,), "zeros"),
+                "lnb2": ((d,), "zeros"), "lnb_x": ((d,), "zeros"),
+                **_attn_specs(cfg, "x"), **_gelu_mlp_specs(cfg)}
+
+
+class EncoderBlock(_Block):
+    @staticmethod
+    def specs(cfg: ModelConfig) -> Specs:
+        """``repro.models.blocks.init_encoder_blocks`` (blocks.py:64-78):
+        bidirectional self attention and a GELU MLP, each after a
+        LayerNorm."""
+        d = cfg.d_model
+        return {"ln1": ((d,), "ones"), "ln2": ((d,), "ones"),
+                "lnb1": ((d,), "zeros"), "lnb2": ((d,), "zeros"),
+                **_attn_specs(cfg), **_gelu_mlp_specs(cfg)}
+
+
+BLOCKS = {"dense": DenseBlock, "vlm": DenseBlock, "moe": MoEBlock,
+          "ssm": RWKVBlock, "hybrid": HybridBlock, "encdec": EncDecBlock}
+
+
 def norm_fn(cfg: ModelConfig):
     """The RMSNorm of ``forward``: kernel K3 (``ops.rmsnorm``) on the
     kernel path (``attn_impl == "pallas"``), the plain norm otherwise.
@@ -111,26 +163,29 @@ def norm_fn(cfg: ModelConfig):
 
 
 def block_fwd(cfg: ModelConfig, window: int):
-    """Returns f(block, x, positions) -> (x, aux)."""
-    _require_ported(cfg)
+    """Returns f(block, x, positions, extra=None) -> (x, aux); ``extra``
+    is the encdec layer's cross K/V ``(xk, xv)``."""
     eps = cfg.norm_eps
     norm = norm_fn(cfg)
 
-    def dense(p: DenseBlock, x, positions):
+    def no_aux(x):
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def dense(p: DenseBlock, x, positions, extra=None):
         h = norm(x, p.ln1, eps)
         x = x + attn.self_attention(p, h, cfg, positions, window)
         h = norm(x, p.ln2, eps)
         x = x + swiglu(h, p.w_gate, p.w_up, p.w_down)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, no_aux(x)
 
-    def moe_blk(p: MoEBlock, x, positions):
+    def moe_blk(p: MoEBlock, x, positions, extra=None):
         h = norm(x, p.ln1, eps)
         x = x + attn.self_attention(p, h, cfg, positions, window)
         h = norm(x, p.ln2, eps)
         y, aux = moe.moe_ffn(p, h, cfg)
         return x + y, aux
 
-    def ssm(p: RWKVBlock, x, positions):
+    def ssm(p: RWKVBlock, x, positions, extra=None):
         B, _, d = x.shape
         zshift = torch.zeros((B, 1, d), dtype=x.dtype, device=x.device)
         zstate = torch.zeros((B, cfg.n_heads, cfg.head_dim, cfg.head_dim),
@@ -140,15 +195,56 @@ def block_fwd(cfg: ModelConfig, window: int):
         x = x + y
         h = norm(x, p.ln2, eps)
         y, _ = rwkv.channel_mix(p, h, zshift)
-        return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + y, no_aux(x)
 
-    return {"dense": dense, "moe": moe_blk, "ssm": ssm}[cfg.family]
+    def hybrid(p: HybridBlock, x, positions, extra=None):
+        B = x.shape[0]
+        di = mamba.d_inner(cfg)
+        h = norm(x, p.ln1, eps)
+        a = attn.self_attention(p, h, cfg, positions, window)
+        zconv = torch.zeros((B, mamba.CONV_K - 1, di), dtype=x.dtype,
+                            device=x.device)
+        zssm = torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32,
+                           device=x.device)
+        m, _, _ = mamba.mamba_mix(p, h, cfg, zconv, zssm)
+        x = x + 0.5 * (norm(a, p.ln_pa, eps) + norm(m, p.ln_pm, eps))
+        h = norm(x, p.ln2, eps)
+        x = x + swiglu(h, p.w_gate, p.w_up, p.w_down)
+        return x, no_aux(x)
+
+    def encdec(p: EncDecBlock, x, positions, extra=None):
+        xk, xv = extra
+        h = layernorm(x, p.ln1, p.lnb1, eps)
+        x = x + attn.self_attention(p, h, cfg, positions, 0)
+        h = layernorm(x, p.ln_x, p.lnb_x, eps)
+        x = x + attn.cross_attention(p, h, xk, xv, cfg)
+        h = layernorm(x, p.ln2, p.lnb2, eps)
+        x = x + gelu_mlp(h, p.w_in, p.b_in, p.w_out, p.b_out)
+        return x, no_aux(x)
+
+    return {"dense": dense, "vlm": dense, "moe": moe_blk, "ssm": ssm,
+            "hybrid": hybrid, "encdec": encdec}[cfg.family]
+
+
+def encoder_block_fwd(cfg: ModelConfig):
+    """Returns f(block, x, positions) -> x for an ``EncoderBlock``: the
+    self attention is bidirectional, so it never reaches K1."""
+    eps = cfg.norm_eps
+
+    def enc(p: EncoderBlock, x, positions):
+        h = layernorm(x, p.ln1, p.lnb1, eps)
+        x = x + attn.self_attention(p, h, cfg, positions, 0,
+                                    bidirectional=True)
+        h = layernorm(x, p.ln2, p.lnb2, eps)
+        return x + gelu_mlp(h, p.w_in, p.b_in, p.w_out, p.b_out)
+
+    return enc
 
 
 def block_decode(cfg: ModelConfig, window: int, seq_sharded: bool):
     """Returns f(block, c, x, pos) -> x; ``c`` maps the names of the
-    layer's cache entries to their slices, which are written in place."""
-    _require_ported(cfg)
+    layer's cache entries to their slices, which are written in place
+    (encdec's ``xk``/``xv`` are read only)."""
     eps = cfg.norm_eps
 
     def kv_attn(p, c, x, pos):
@@ -184,4 +280,26 @@ def block_decode(cfg: ModelConfig, window: int, seq_sharded: bool):
         c["shift_c"].copy_(shift_c)
         return x + y
 
-    return {"dense": dense, "moe": moe_blk, "ssm": ssm}[cfg.family]
+    def hybrid(p: HybridBlock, c, x, pos):
+        h = rmsnorm(x, p.ln1, eps)
+        a, _, _ = attn.decode_self_attention(
+            p, h, cfg, c["k"], c["v"], pos, window, seq_sharded)
+        m, conv, ssm_state = mamba.mamba_mix(p, h, cfg, c["conv"], c["ssm"])
+        c["conv"].copy_(conv)
+        c["ssm"].copy_(ssm_state)
+        x = x + 0.5 * (rmsnorm(a, p.ln_pa, eps) + rmsnorm(m, p.ln_pm, eps))
+        h = rmsnorm(x, p.ln2, eps)
+        return x + swiglu(h, p.w_gate, p.w_up, p.w_down)
+
+    def encdec(p: EncDecBlock, c, x, pos):
+        h = layernorm(x, p.ln1, p.lnb1, eps)
+        out, _, _ = attn.decode_self_attention(
+            p, h, cfg, c["k"], c["v"], pos, 0, seq_sharded)
+        x = x + out
+        h = layernorm(x, p.ln_x, p.lnb_x, eps)
+        x = x + attn.cross_attention(p, h, c["xk"], c["xv"], cfg)
+        h = layernorm(x, p.ln2, p.lnb2, eps)
+        return x + gelu_mlp(h, p.w_in, p.b_in, p.w_out, p.b_out)
+
+    return {"dense": dense, "vlm": dense, "moe": moe_blk, "ssm": ssm,
+            "hybrid": hybrid, "encdec": encdec}[cfg.family]

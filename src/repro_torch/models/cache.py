@@ -1,20 +1,21 @@
-"""Decode-state construction: the KV cache, or the rwkv6 state.
+"""Decode-state construction: the KV cache, and each family's state.
 
 Same layout as ``repro.models.cache``: every entry stacked on a leading
-layer axis, K and V as (L, B, S, Hkv, Dh); for the ssm family the float32
-WKV state (L, B, H, Dh, Dh) and the last normed token of the time mix and
-of the channel mix, (L, B, 1, d) in the model's dtype.  The decode step
-writes into it in place.
+layer axis, K and V as (L, B, S, Hkv, Dh) for every family with attention;
+encdec adds the cross K/V ``xk``/``xv`` (L, B, enc_seq, Hkv, Dh) in the KV
+dtype, hybrid the mamba conv state ``conv`` (L, B, K-1, Di) in the model's
+dtype and the float32 SSM state ``ssm`` (L, B, Di, N); the ssm family has
+the float32 WKV state (L, B, H, Dh, Dh) and the last normed token of the
+time mix and of the channel mix, (L, B, 1, d) in the model's dtype.  The
+decode step writes into it in place.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.models import mamba
 from repro_torch.models.config import ModelConfig
-
-# families whose decode state is the KV cache alone
-_KV_FAMILIES = ("dense", "moe", "vlm")
 
 
 def kv_cache_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -29,23 +30,33 @@ def kv_cache_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
                device: DeviceLike = None) -> dict:
-    """Zeroed {"k", "v"} of shape (L, batch, seq, Hkv, Dh), or for the
-    ssm family {"wkv", "shift_t", "shift_c"}, on ``device`` (default: the
-    card)."""
+    """The zeroed decode state of ``cfg``'s family (the module docstring),
+    with the JAX package's names in its order, on ``device`` (default:
+    the card)."""
     dev = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    kvdt = kv_cache_dtype(cfg)
+    L, B = cfg.n_layers, batch
+    cache = {}
+
+    def make(name, shape, dtype=dt):
+        cache[name] = torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.family != "ssm":
+        kv_shape = (L, B, seq, cfg.n_kv_heads, cfg.head_dim)
+        make("k", kv_shape, kvdt)
+        make("v", kv_shape, kvdt)
+    if cfg.family == "encdec":
+        xshape = (L, B, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+        make("xk", xshape, kvdt)
+        make("xv", xshape, kvdt)
     if cfg.family == "ssm":
-        L, H, Dh, d = cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.d_model
-        dt = torch_dtype(cfg.dtype)
-        return {"wkv": torch.zeros((L, batch, H, Dh, Dh),
-                                   dtype=torch.float32, device=dev),
-                "shift_t": torch.zeros((L, batch, 1, d), dtype=dt,
-                                       device=dev),
-                "shift_c": torch.zeros((L, batch, 1, d), dtype=dt,
-                                       device=dev)}
-    if cfg.family not in _KV_FAMILIES:
-        raise NotImplementedError(
-            f"decode state of the {cfg.family!r} family is not ported yet")
-    shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
-    dt = kv_cache_dtype(cfg)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+        make("wkv", (L, B, cfg.n_heads, cfg.head_dim, cfg.head_dim),
+             torch.float32)
+        make("shift_t", (L, B, 1, cfg.d_model))
+        make("shift_c", (L, B, 1, cfg.d_model))
+    if cfg.family == "hybrid":
+        di = mamba.d_inner(cfg)
+        make("conv", (L, B, mamba.CONV_K - 1, di))
+        make("ssm", (L, B, di, cfg.ssm_state), torch.float32)
+    return cache

@@ -2,8 +2,9 @@
 
 ``params_from_numpy`` takes the JAX parameter tree as NumPy arrays
 (``jax.tree.map(np.asarray, params)``: per-layer arrays stacked on a
-leading layer axis) and returns a ``Transformer`` holding the same values,
-so that the two packages compute the same function.  It needs NumPy only.
+leading layer axis, under ``blocks`` and, for encdec, ``enc``) and
+returns a ``Transformer`` holding the same values, so that the two
+packages compute the same function.  It needs NumPy only.
 """
 from __future__ import annotations
 
@@ -26,19 +27,30 @@ def _copy(dst: torch.Tensor, src, name: str):
 
 def params_from_numpy(tree: dict, cfg: ModelConfig,
                       device: DeviceLike = None) -> Transformer:
+    """The names must match the model's exactly: the top level, the
+    stacked ``blocks`` and, for encdec, the stacked encoder ``enc``."""
     dev = resolve_device(device)
     model = Transformer(cfg, dev, torch_dtype(cfg.dtype))
-    blocks = tree["blocks"]
-    top = {k for k in tree if k != "blocks"}
+    stacks = {name: getattr(model, name) for name in ("blocks", "enc")
+              if hasattr(model, name)}
+    top = {k for k in tree if k not in stacks}
     want_top = {n for n, _ in model.named_parameters(recurse=False)}
-    want_blk = {n for n, _ in model.blocks[0].named_parameters()}
-    if top != want_top or set(blocks) != want_blk:
-        raise ValueError(f"parameter names differ: tree has "
-                         f"{sorted(top)} + blocks {sorted(blocks)}, model "
-                         f"wants {sorted(want_top)} + {sorted(want_blk)}")
+    have = {name: set(tree.get(name, ())) for name in stacks}
+    want = {name: {n for n, _ in mods[0].named_parameters()}
+            for name, mods in stacks.items()}
+    if top != want_top or have != want:
+        raise ValueError(f"parameter names differ: tree has {sorted(top)} "
+                         f"+ {_sorted(have)}, model wants "
+                         f"{sorted(want_top)} + {_sorted(want)}")
     for name, p in model.named_parameters(recurse=False):
         _copy(p, tree[name], name)
-    for i, blk in enumerate(model.blocks):
-        for name, p in blk.named_parameters():
-            _copy(p, np.asarray(blocks[name])[i], f"blocks.{name}[{i}]")
+    for stack, mods in stacks.items():
+        for i, blk in enumerate(mods):
+            for name, p in blk.named_parameters():
+                _copy(p, np.asarray(tree[stack][name])[i],
+                      f"{stack}.{name}[{i}]")
     return model
+
+
+def _sorted(names: dict) -> dict:
+    return {k: sorted(v) for k, v in names.items()}

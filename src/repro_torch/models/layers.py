@@ -1,8 +1,9 @@
-"""Shared layers: RMSNorm, SwiGLU and rotary position embeddings.
+"""Shared layers: RMSNorm, LayerNorm, SwiGLU, the GELU MLP and rotary
+position embeddings.
 
-The dtype flow is ``repro.models.layers``': normalisation, the SiLU gate and
-RoPE compute in float32 and cast back to the working type; the matrix
-products run in the working type.
+The dtype flow is ``repro.models.layers``': normalisation, the SiLU and
+GELU gates and RoPE compute in float32 and cast back to the working type;
+the matrix products and the MLP biases run in the working type.
 """
 from __future__ import annotations
 
@@ -34,6 +35,25 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     u = x @ w_up
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ w_down
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 with the population variance (``jnp.var``),
+    cast back; no TPU kernel computes it, so both paths take this."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation."""
+    h = x @ w_in + b_in
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ w_out + b_out
 
 
 def rope_freqs(head_dim: int, theta: float,

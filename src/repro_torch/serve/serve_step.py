@@ -54,7 +54,9 @@ class ServingEngine:
 
     All slots share one position counter (left-padded prompts), as in the
     JAX package.  ``device`` defaults to the card and must be where the
-    model's parameters lie.
+    model's parameters lie.  Requests are text only, as in the JAX
+    package: a vlm gets no patches, and an encdec decoder cross-attends
+    the zero ``xk``/``xv`` of ``init_cache``, which nothing fills.
     """
 
     def __init__(self, cfg: ModelConfig, model: Transformer, slots: int,

@@ -1,9 +1,9 @@
 """The port stands alone: no ``jax`` and no ``repro`` import, anywhere in
 ``src/repro_torch``, ``chip_smoke.py``, ``chip_mutants.py`` or
-``chip_compare.py``, and it
-serves (the dense, moe and ssm families), schedules and simulates under faults, HadarE, the env, the
-sanitized policy comparison and the observer included, with both blocked;
-``python -m repro_torch.obs`` runs with both blocked too."""
+``chip_compare.py``, and it serves all ten configs (every family),
+prefills vlm and encdec, schedules and simulates under faults, HadarE, the
+env, the sanitized policy comparison and the observer included, with both
+blocked; ``python -m repro_torch.obs`` runs with both blocked too."""
 import ast
 import os
 import subprocess
@@ -31,6 +31,10 @@ def test_no_jax_or_repro_imports():
               REPO / "chip_compare.py"]
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"src/repro_torch/models/rwkv.py",
+            "src/repro_torch/models/mamba.py",
+            "src/repro_torch/configs/hymba_1_5b.py",
+            "src/repro_torch/configs/internvl2_2b.py",
+            "src/repro_torch/configs/whisper_tiny.py",
             "src/repro_torch/models/moe.py",
             "src/repro_torch/configs/qwen3_moe_235b_a22b.py",
             "src/repro_torch/configs/grok_1_314b.py",
@@ -87,14 +91,24 @@ from repro_torch.launch import serve
 from repro_torch.models import convert, moe, rwkv
 from repro_torch.models.model import init_params
 from repro_torch.serve.serve_step import Request, ServingEngine
-for arch in ("llama3.2-1b", "rwkv6-7b", "qwen3-moe-235b-a22b", "grok-1-314b",
-             "qwen2.5-32b"):
+import torch
+from repro_torch.configs import list_archs
+from repro_torch.models import mamba
+from repro_torch.models.model import forward
+for arch in list_archs():
     cfg = get_config(arch).reduced(n_layers=1, max_d_model=128)
     model = init_params(cfg, seed=0, device="cpu")
     eng = ServingEngine(cfg, model, slots=1, max_seq=8, device="cpu")
     (r,) = eng.run([Request(0, np.arange(3), 2)])
     assert len(r.out) == 2
     print("served", arch, r.out.tolist())
+    if cfg.family in ("vlm", "encdec"):
+        key = "patches" if cfg.family == "vlm" else "frames"
+        lg, _ = forward(model, cfg, {"tokens": torch.arange(3)[None],
+                                     key: torch.randn(1, cfg.enc_seq,
+                                                      cfg.d_model)})
+        assert lg.shape == (1, 3, cfg.vocab_size)
+        print("prefilled", arch)
 from repro_torch.core.hadar import HadarScheduler
 from repro_torch.core.simulator import simulate
 from repro_torch.core.trace import grown_cluster, philly_trace
@@ -175,6 +189,10 @@ def test_serves_with_jax_and_repro_blocked():
     assert "served qwen3-moe-235b-a22b" in res.stdout
     assert "served grok-1-314b" in res.stdout
     assert "served qwen2.5-32b" in res.stdout
+    for arch in ("hymba-1.5b", "internvl2-2b", "whisper-tiny"):
+        assert f"served {arch}" in res.stdout
+    assert "prefilled internvl2-2b" in res.stdout
+    assert "prefilled whisper-tiny" in res.stdout
     assert "scheduled" in res.stdout
     assert "events" in res.stdout
     assert "hadare" in res.stdout

@@ -1,5 +1,6 @@
-"""The port's dense models against the JAX package's, in float32 on the
-CPU: llama3.2-1b, tinyllama-1.1b, granite-34b (MQA) and qwen2.5-32b (QKV
+"""The port's config registry (all ten of the JAX package's configs) and
+its dense models against the JAX package's, in float32 on the CPU:
+llama3.2-1b, tinyllama-1.1b, granite-34b (MQA) and qwen2.5-32b (QKV
 bias).
 
 The llama config is reduced with two KV heads, so that GQA grouping is
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import get_shape as jax_get_shape
 from repro.models import decode_step as jax_decode_step
 from repro.models import forward as jax_forward
 from repro.models import init_cache as jax_init_cache
@@ -62,28 +64,40 @@ def _tokens(cfg, B, S, seed=0):
 
 
 def test_config_is_a_copy_of_the_jax_config():
+    from repro.configs import canonical_names as jax_canonical_names
+    from repro.configs import list_archs as jax_list_archs
     from repro.models.config import ModelConfig as JaxModelConfig
+    from repro_torch.configs import INPUT_SHAPES, canonical_names, get_shape
     from repro_torch.models.config import ModelConfig
     assert ([f.name for f in dataclasses.fields(ModelConfig)]
             == [f.name for f in dataclasses.fields(JaxModelConfig)])
-    ported = ["tinyllama-1.1b", "grok-1-314b", "granite-34b", "llama3.2-1b",
-              "qwen3-moe-235b-a22b", "rwkv6-7b", "qwen2.5-32b"]
-    assert list_archs() == ported  # the JAX package's names, in its order
-    for name in ported:
-        assert (dataclasses.asdict(get_config(name))
-                == dataclasses.asdict(jax_get_config(name)))
-    for name in ("hymba-1.5b", "internvl2-2b", "whisper-tiny",
-                 "no-such-model"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_config(name)
+    # all ten of the JAX package's names, in its order
+    assert list_archs() == jax_list_archs() and len(list_archs()) == 10
+    assert canonical_names() == jax_canonical_names()
+    assert get_shape("decode_32k") == INPUT_SHAPES["decode_32k"]
+    assert (dataclasses.asdict(get_shape("long_500k"))
+            == dataclasses.asdict(jax_get_shape("long_500k")))
 
 
-@pytest.mark.parametrize("change", [{"family": "encdec"}, {"family": "vlm"},
-                                    {"family": "hybrid"}])
-def test_unported_options_raise(change):
-    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(), **change)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tm.init_params(cfg, device="cpu")
+@pytest.mark.parametrize("arch", [
+    "whisper-tiny", "tinyllama-1.1b", "internvl2-2b", "grok-1-314b",
+    "granite-34b", "llama3.2-1b", "hymba-1.5b", "qwen3-moe-235b-a22b",
+    "rwkv6-7b", "qwen2.5-32b"])
+def test_every_config_equals_the_jax_config(arch):
+    """Each of the ten configs, by its name and by its module name."""
+    want = dataclasses.asdict(jax_get_config(arch))
+    assert dataclasses.asdict(get_config(arch)) == want
+    mod = arch.replace("-", "_").replace(".", "_")
+    assert dataclasses.asdict(get_config(mod)) == want
+
+
+@pytest.mark.parametrize("name", ["no-such-model", "llama3.2-70b", ""])
+def test_unknown_arch_raises_key_error(name):
+    """As the reference's registry does, now that every name is ported."""
+    with pytest.raises(KeyError, match="unknown architecture"):
+        jax_get_config(name)
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config(name)
 
 
 def test_init_params_copies_param_factory_scales():
