@@ -18,7 +18,7 @@ and bursty tables, ``chip_smoke.commit_scan_check``: bitwise, twice; K4:
 the fig5 n=2048 grown and bursty tables, the n=256 "busy" and n=8192
 "queue" ones of ``chip_smoke.k4_tables``, ``chip_smoke.find_alloc_check``:
 bitwise, twice; and every launch of the smoke's 256-job ``simulate`` and
-of its faulted event run, recorded with its inputs, each bitwise against
+of its faulted 128-job event run, recorded with its inputs, each bitwise against
 its plain version), then
 timed through ``chip_mutants.swapped``, the builds in turn, forwards then
 backwards, ``--rounds`` times:
@@ -70,7 +70,7 @@ CASES = {"rmsnorm": [(4096, 2048, "bfloat16", "bfloat16", "main", 50),
          "find_alloc": [(2048, "grown", 20), (2048, "bursty", 20),
                         (256, "busy", 20), (8192, "queue", 10),
                         (chip_smoke.SIM_JOBS, "simulate", 0),
-                        (chip_smoke.SIM_JOBS, "events", 0)]}
+                        (chip_smoke.EVENT_JOBS, "events", 0)]}
 # kernel -> (a part of its CUDA kernels' names, [(model, layers)]): the
 # forwards it is timed in
 FORWARDS = {"rmsnorm": ("rmsnorm", [("llama3.2-1b", 4), ("rwkv6-7b", 2)]),
@@ -181,7 +181,7 @@ def _events_run(jobs, cluster):
 
 
 # K4's recorded paths: the smoke's 256-job ``simulate``
-# (``chip_smoke.phase_simulate``) and its faulted event run
+# (``chip_smoke.phase_simulate``) and its faulted 128-job event run
 # (``chip_smoke.phase_events``), cuda solver
 PATH_RUNS = {"simulate": _simulate_run, "events": _events_run}
 

@@ -21,7 +21,14 @@ cases through each build with the smoke's own checks:
   topology of the kernel phase through ``chip_smoke.find_alloc_check`` and
   ``commit_scan_check`` (bitwise, twice, bitwise deterministic; K5's
   runner-up payoff within one ulp), and also on the smoke's further cases
-  of each (``chip_smoke.EXTRA_K4``, ``chip_smoke.EXTRA_K5``).
+  of each (``chip_smoke.EXTRA_K4``, ``chip_smoke.EXTRA_K5``);
+- the backward kernels (K1b ``flash_attention_bwd``, K2b
+  ``rwkv6_scan_bwd``, K3b ``rmsnorm_bwd``): faults anywhere in the
+  source, run through every case of the smoke's phase backward and its
+  checks (``chip_smoke.k1b_check``, ``k2b_check_case``, ``k3b_check``:
+  each gradient against autograd of the plain version, determinism).
+  Each case's inputs and plain gradients are made once and shared by the
+  builds.
 
 The unchanged sources run first as the controls.  A fault is caught when
 at least one case exceeds its limit.  Exits non-zero if a control fails or
@@ -211,13 +218,89 @@ COMMIT_SCAN_MUTANTS = {
         "return more && (c + 2) * kChunk <= a.L;",
         "a walk never takes the last pool chunk when it is partial"),
 }
+K1B_MUTANTS = {
+    "drop_g_head": (
+        "for (int g = 0; g < G; ++g) {", "for (int g = 0; g < G - (G > 1); ++g) {",
+        "one of a kv head's G q heads is dropped from dk and dv"),
+    "dq_no_window": (
+        "p_ds(s, dp, nullptr, dSs, lse_s, dl_s, q0, k0, ty, tx, S, causal, "
+        "window, scale);",
+        "p_ds(s, dp, nullptr, dSs, lse_s, dl_s, q0, k0, ty, tx, S, causal, "
+        "0, scale);",
+        "the dq pass skips the window mask inside a key tile"),
+    "no_delta": (
+        "dSs[r * LDP + c] = p * (dp[i][j] - dl_s[r]);",
+        "dSs[r * LDP + c] = p * dp[i][j];",
+        "dS takes dP without subtracting delta = dO . o"),
+    "dk_unscaled": (
+        "from_f32<T>(acc_k[i][j] * scale)", "from_f32<T>(acc_k[i][j])",
+        "dk misses the softmax scale"),
+    "causal_edge": (
+        "if (causal) ok = ok && col <= row;",
+        "if (causal) ok = ok && col <= row + 1;",
+        "each row's gradient also takes the next key"),
+    "lse_no_rescale": (
+        "l[i] = l[i] * alpha + sum;", "l[i] = l[i] + sum;",
+        "the log-sum-exp's running sum is not rescaled when the max grows"),
+    "delta_unnormalised": (
+        "delta[base + row] = su / sum;", "delta[base + row] = su;",
+        "delta is sum_j exp(s - m) dP, not divided by the row's sum"),
+}
+K2B_MUTANTS = {
+    "dw_wrong_step": (
+        "const float sp = scr[(c * JC + cc) * NT + tid];",
+        "const float sp = scr[((c + 1 < n ? c + 1 : c) * JC + cc) * NT + tid];",
+        "dw and dr read S_t in place of S_{t-1}"),
+    "dk_no_bonus": (
+        "from_f32<T>(fmaf(ri * ui, d, sk))", "from_f32<T>(sk)",
+        "dk drops the u-bonus term"),
+    "adjoint_no_decay": (
+        "adj[cc] = fmaf(wi, adj[cc], ri * do_s[c * D + j0 + cc]);",
+        "adj[cc] = adj[cc] + ri * do_s[c * D + j0 + cc];",
+        "the adjoint is carried back without the decay"),
+    "s0_ignored": (
+        "st[cc] = s0[(bh * D + i) * D + j0 + cc];", "st[cc] = 0.f;",
+        "the replay starts from zero, not S_0"),
+    "du_last_batch": (
+        "for (int b = 0; b < B; ++b) s +=", "for (int b = B - 1; b < B; ++b) s +=",
+        "du sums only the last batch row"),
+    "dv_row_short": (
+        "for (int ii = 0; ii < D; ++ii)", "for (int ii = 0; ii < D - 1; ++ii)",
+        "dv misses the last key row"),
+    "stale_checkpoint": (
+        "st[cc] = ck[(static_cast<long long>(ch) * JC + cc) * NT + tid];",
+        "st[cc] = ck[(static_cast<long long>(ch > 0 ? ch - 1 : 0) * JC + cc)"
+        " * NT + tid];",
+        "a chunk re-derives its states from the previous chunk's checkpoint"),
+}
+K3B_MUTANTS = {
+    "dscale_missing_block": (
+        "for (int b = 0; b < nblocks; ++b)", "for (int b = 0; b < nblocks - 1; ++b)",
+        "dscale misses the last row block's partial"),
+    "dx_no_mean_term": (
+        "dxr[i] = from_f32<T>(r * g - xf * c);", "dxr[i] = from_f32<T>(r * g);",
+        "dx drops the x r^3 mean(g x) term"),
+    "dscale_no_r": (
+        "acc[i] = fmaf(dyf * xf, r, acc[i]);", "acc[i] += dyf * xf;",
+        "dscale misses the 1/rms factor"),
+    "no_eps": (
+        "const float r = 1.f / sqrtf(ss * inv_d + eps);",
+        "const float r = 1.f / sqrtf(ss * inv_d);",
+        "eps is dropped from the mean square"),
+    "dy_with_x_stride": (
+        "const T* dyr = dy + row * dy_stride;", "const T* dyr = dy + row * x_stride;",
+        "dy's rows are read with x's row stride"),
+}
 # kernel -> its faults and the part of its source they go in (after the
 # marker, or all of it)
 KERNELS = {"flash_attention": (FA_MUTANTS, "// bf16: wgmma on a TMA ring"),
            "rwkv6_scan": (RWKV_MUTANTS, None),
            "rmsnorm": (RMS_MUTANTS, None),
            "find_alloc": (FIND_ALLOC_MUTANTS, None),
-           "commit_scan": (COMMIT_SCAN_MUTANTS, None)}
+           "commit_scan": (COMMIT_SCAN_MUTANTS, None),
+           "flash_attention_bwd": (K1B_MUTANTS, None),
+           "rwkv6_scan_bwd": (K2B_MUTANTS, None),
+           "rmsnorm_bwd": (K3B_MUTANTS, None)}
 # the JAX package's bf16 kernel-test tolerance (tests/test_kernels.py), a
 # plain max abs error, reported beside the gate for comparison
 ABS_TOL = 5e-2
@@ -268,6 +351,44 @@ def swapped(kernel: str, lib: Path):
 
 _SCHED_TABLES = {}
 _PLAIN = {}  # case -> what the first K5 check on it returned last
+_BWD_INPUTS = {}  # (kernel, case) -> its inputs, made once
+_PLAIN_GRADS = {}  # inputs' addresses and layouts -> the plain gradients
+
+
+def _layout(t):
+    return (t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype)
+
+
+def _cached_plain_grads(fn, inputs, grad_out, retain=False):
+    """``chip_smoke._plain_grads`` computed once per inputs: the cases'
+    inputs live for the whole run, so their addresses name them."""
+    if retain:
+        return _REAL_PLAIN(fn, inputs, grad_out, retain)
+    key = (tuple(_layout(t) for t in inputs), _layout(grad_out))
+    if key not in _PLAIN_GRADS:
+        _PLAIN_GRADS[key] = _REAL_PLAIN(fn, inputs, grad_out)
+    return _PLAIN_GRADS[key]
+
+
+_REAL_PLAIN = chip_smoke._plain_grads
+
+
+def bwd_inputs(kernel: str) -> dict:
+    """case -> inputs of every case of the smoke's phase backward for
+    ``kernel`` (seed 0), made once."""
+    import torch
+    cases = {"flash_attention_bwd": chip_smoke.k1b_cases(),
+             "rwkv6_scan_bwd": chip_smoke.K2B_CASES,
+             "rmsnorm_bwd": chip_smoke.K3B_CASES}[kernel]
+    make = {"flash_attention_bwd": chip_smoke.k1b_inputs,
+            "rwkv6_scan_bwd": chip_smoke.k2b_inputs,
+            "rmsnorm_bwd": chip_smoke.k3b_inputs}[kernel]
+    if not any(k == kernel for k, _ in _BWD_INPUTS):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        for case in cases:
+            _BWD_INPUTS[(kernel, tuple(case))] = make(case, gen)
+    return {c: ins for (k, c), ins in _BWD_INPUTS.items() if k == kernel}
 
 
 def sched_tables() -> dict:
@@ -300,8 +421,22 @@ def run_cases(kernel: str, lib: Path) -> list:
     # scheduler, which must launch the repository's kernels
     tables = (sched_tables() if kernel in ("find_alloc", "commit_scan")
               else None)
-    with swapped(kernel, lib):
-        if kernel == "flash_attention":
+    inputs = bwd_inputs(kernel) if kernel.endswith("_bwd") else None
+    with swapped(kernel, lib), mock.patch.object(
+            chip_smoke, "_plain_grads", _cached_plain_grads):
+        if kernel == "flash_attention_bwd":
+            for case, ins in inputs.items():
+                errs = chip_smoke.k1b_check(*ins, case[6], case[7])
+                rows.append({"case": list(case[:8]), **errs})
+        elif kernel == "rwkv6_scan_bwd":
+            for case, ins in inputs.items():
+                errs, _ = chip_smoke.k2b_check_case(case[5], ins)
+                rows.append({"case": list(case[:6]), **errs})
+        elif kernel == "rmsnorm_bwd":
+            for case, ins in inputs.items():
+                rows.append({"case": list(case[:5]),
+                             **chip_smoke.k3b_check(*ins)})
+        elif kernel == "flash_attention":
             for case in chip_smoke.kernel_cases():
                 if case[5] == "bfloat16":
                     errs, _ = chip_smoke.check_case(case, gen)

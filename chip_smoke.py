@@ -13,8 +13,9 @@ LayerNorms), and the Hadar decision path on the fig5 shape
 (FIND_ALLOC K4, the greedy commit K5), through the round and the event
 engine, HadarE's forked copies and the scheduling env, with and without
 faults, the policy-comparison table under the runtime sanitizer, and two
-faulted runs under the observer.  Any failure raises and the script exits
-non-zero.
+faulted runs under the observer; and training through the kernels, with
+the backward kernels K1b, K2b and K3b.  Any failure raises and the script
+exits non-zero.
 
 1. kernel  -- each kernel against its plain PyTorch version
    (``kernels/ref.py``) on the card, then timed on the card alone
@@ -78,6 +79,22 @@ non-zero.
    ("hadare"); every K5 case runs twice and must be bitwise deterministic; its row gives the
    microseconds a step.  First the running NumPy is checked to sum float64
    in the order both replicate.
+1b. backward -- each backward kernel against autograd of its kernel's
+   plain version on the card (``_plain_grads``), run twice, the two
+   results bitwise equal; float32 gradients within ``BWD_F32_REL_TOL`` of
+   the largest value, bf16 by ``rowblock_rel_err`` within 3e-2 (K3b's dx
+   within one bf16 ulp of each row's largest value).  K1b: the K1 sweep
+   in both dtypes and masks, the llama3.2-1b train shape in the model
+   layout, every config's attention (``MODEL_ATTENTION``), ragged
+   non-causal S=100, windows biting at S=2048 and 4096, D=128, float32
+   ragged S=1000; timed beside SDPA's backward (a yardstick only).  K2b:
+   the K2 sweep, the rwkv6-7b train shape (its plain version on the first
+   ``K2B_PLAIN_STEPS`` steps, and at the full length on
+   ``K2B_LAYER_SLICE`` with du against its closed form), ragged S=1000,
+   D=16 and 128, S=17, decays of exactly 0.  K3b: the llama and rwkv6
+   norms in bf16 and float32, ragged, strided x and dy, a ragged row
+   count, an f32 scale with bf16 x, rows where eps matters; timed beside
+   ``F.rms_norm``'s backward.  No PyTorch call computes WKV6's backward.
 2. prefill -- llama3.2-1b ``forward`` on 4 x 1024 tokens in bf16,
    through the kernels (``attn_impl="pallas"``) and through the einsum
    path (``"xla"``), each timed as the median of ``FORWARD_REPS`` calls.
@@ -116,7 +133,8 @@ non-zero.
    GPU-seconds, each round record); K4 and K5 launched by the cuda runs
    only; the faulted run's rounds, evictions, average JCT and makespan
    those of the JAX package (``REF_ROUNDS_FAULTED``).
-8. events -- ``simulate_events`` of the 256-job trace under the same model
+8. events -- ``simulate_events`` of the 128-job fig5 trace (``EVENT_JOBS``)
+   under the same model
    with both solvers: every result field but host time equal; K4 and K5
    launched by the cuda run only; events, consults and evictions those of
    the JAX package, its average JCT and makespan within 1e-9 relative
@@ -144,7 +162,7 @@ non-zero.
    and keys, K4 launched by each cuda run.
 11. env -- (a) ``repro_torch.env.run_policy`` of
    ``HadarScheduler(solver="cuda")`` through ``ClusterSchedulingEnv`` on
-   phase 8's 256-job trace, cluster and failure model (reward neg_jct,
+   phase 8's 128-job trace, cluster and failure model (reward neg_jct,
    price observations on), traced as in 8: the result equal to phase 8's
    cuda ``simulate_events`` result in every field but host time, K4 and
    K5 launched, every step's observation consistent (queue plus running
@@ -226,6 +244,27 @@ non-zero.
    depths 1, 2 and 4.
 22. serve_whisper -- phase 3 for whisper; the decoder cross-attends the
    zero cross K/V, as the JAX package's engine does.
+23. train -- llama3.2-1b at full width and depth (16 layers, bf16,
+   ``remat``), ``TRAIN_STEPS`` AdamW steps (``TRAIN_OC``) on one batch of
+   4 x 1024 tokens from ``repro_torch.data.pipeline``: each step's
+   launches exact (``train_launches``: K1 32, K1b 16, K3 65, K3b 33), its
+   loss and grad norm finite, the last loss below the first; during step
+   2 every K1b and K3b call checked on its own inputs as in 1b; the step
+   timed (median of the last five) beside the plain path's, split into
+   forward, backward and optimizer by CUDA events, and the peak memory;
+   the float32 model at depth 2: every parameter's gradient through the
+   kernel path against a float64 gradient (``TRAIN_F32_GRAD_TOL``, or
+   ``F64_FACTOR`` times the plain path's own error).
+24. train_rwkv -- the same for rwkv6-7b at 8 of 32 layers (K2 16, K2b 8,
+   K3 33, K3b 17 a step), its plain path timed on one step, its float32
+   gate at 256 tokens.
+25. train_families -- one kernel-path step of each of the ten configs at
+   ``reduced(max_d_model=128)``: a finite loss, the parameters moved and
+   finite, the launches exact.
+26. train_scheduled -- ``repro_torch.launch.train.run_scheduled_training``
+   on the card through the kernels for hadare, hadar and gavel:
+   HadarE's CRU 1.0, every eval loss finite and below its job's initial
+   one, HadarE's rounds at or below Hadar's (``tests/test_system.py``).
 
 Full-depth agreement of the two model paths is printed, not gated: the
 random init makes a deep stack chaotic.  It prints a ``{"kernels":
@@ -339,23 +378,27 @@ HORIZON = 7 * 24 * 3600.0
 # the decision-latency sweep of the schedule phase (both solvers)
 SWEEP_SIZES = (64, 256, 1024, 2048)
 SIM_JOBS = 256
+# the trace of the faulted event run (phase events) and of the env episode
+# that repeats it (phase env), cut from SIM_JOBS to keep the smoke's time:
+# grown_cluster(128) is 16 nodes, the run 864 events and 735 consults
+EVENT_JOBS = 128
 # the faulted round run's trace, cut from SIM_JOBS to keep the smoke's
 # time: grown_cluster(48) is 15 nodes, the run takes 322 rounds, 18 of
 # its consults queue more than 24 jobs (the greedy path, K5)
 FAULT_ROUND_JOBS = 48
 # the failure model of the faulted runs (phases 7, 8 and 10): on
-# grown_cluster(256), 32 nodes, it draws 94 windows over its week, 27 of
+# grown_cluster(128), 16 nodes, it draws 47 windows over its week, 7 of
 # them spot reclaims; on grown_cluster(48), 46 windows, 7 spot
 FAULT_MODEL = dict(seed=7, mtbf_hours=72.0, spot_frac=0.2,
                    spot_reclaim_hours=24.0)
 # The JAX package's results for the same runs, each with its own
 # HadarScheduler(solver="numpy") and FAULT_MODEL on the fig5 grown
 # cluster (benchmarks/fig5_scalability.grown_cluster), run once on a CPU:
-# repro.sim.engine.simulate_events of philly_trace(SIM_JOBS, seed=1), and
+# repro.sim.engine.simulate_events of philly_trace(EVENT_JOBS, seed=1), and
 # simulate_rounds of philly_trace(FAULT_ROUND_JOBS, seed=1).
-REF_EVENTS = {"n_events": 1190, "sched_calls": 929, "evictions": 99,
-              "avg_jct_s": 118650.07469017516,
-              "makespan_s": 230066.13249397563}
+REF_EVENTS = {"n_events": 864, "sched_calls": 735, "evictions": 33,
+              "avg_jct_s": 111159.69755803476,
+              "makespan_s": 217736.4780284858}
 REF_ROUNDS_FAULTED = {"rounds": 322, "evictions": 10,
                       "avg_jct_s": 44677.16528191138,
                       "makespan_s": 115652.0}
@@ -990,6 +1033,448 @@ def rms_case(case, gen):
         f"{library_ms} (warm {library_warm_ms}) "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase backward: K1b, K2b, K3b against autograd of their plain versions
+# ---------------------------------------------------------------------------
+
+# A float32 gradient of a backward kernel: max abs error over the largest
+# |plain gradient| (both sum in float32, in other orders).  A bfloat16
+# gradient: ``rowblock_rel_err`` for (B,H,S,D) outputs, else the max abs
+# error over the largest value, within BF16_REL_TOL; dx of K3b within one
+# bf16 ulp of each row's largest value, as K3's forward.
+BWD_F32_REL_TOL = 1e-4
+
+
+def grad_gate(got, want) -> dict:
+    """One gradient of a backward kernel against its plain version's,
+    gated by its dtype."""
+    import torch
+    abs_err = float((got.float() - want.float()).abs().max())
+    rel = abs_err / max(float(want.float().abs().max()), 1e-30)
+    if got.dtype == torch.float32:
+        return {"max_abs_err": abs_err, "max_rel_err": rel,
+                "gated_on": "max_rel_err", "tol": BWD_F32_REL_TOL,
+                "ok": rel < BWD_F32_REL_TOL}
+    blk = rowblock_rel_err(got, want) if got.dim() == 4 else rel
+    return {"max_abs_err": abs_err, "max_rel_err": blk,
+            "gated_on": "max_rel_err", "tol": BF16_REL_TOL,
+            "ok": blk < BF16_REL_TOL}
+
+
+def _grads_gate(names, got, want) -> dict:
+    """``grad_gate`` of each named gradient; "ok" and the worst
+    "max_abs_err" over them."""
+    errs = {n: grad_gate(g, w) for n, g, w in zip(names, got, want)}
+    return {**errs, "ok": all(e["ok"] for e in errs.values()),
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "max_rel_err": max(e["max_rel_err"] for e in errs.values())}
+
+
+def _plain_grads(fn, inputs, grad_out, retain=False):
+    """Autograd of ``fn`` (a plain version in ``kernels/ref.py``) on
+    detached copies of ``inputs``: (grads, a closure that runs the same
+    backward again on the kept graph, for timing)."""
+    import torch
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        if isinstance(out, tuple):
+            out = out[0]
+        grads = torch.autograd.grad(out, leaves, grad_out,
+                                    retain_graph=retain)
+    again = (lambda: torch.autograd.grad(out, leaves, grad_out,
+                                         retain_graph=True)) if retain \
+        else None
+    return grads, again
+
+
+def k1b_bound(B, Hq, Hkv, S, D, causal, window, dtype):
+    """Least time for K1b's function: its five products over the pairs
+    the mask leaves (scale q k^T, dO v^T, dV, dQ, dK) at the type's peak,
+    or q, k, v, dO read once and dq, dk, dv written once (the gradient
+    needs no o: delta = sum_j P dP).  Returns (ms, "bytes" |
+    "operations", flops, bytes)."""
+    _, _, fwd_flops, _ = attention_bound(B, Hq, Hkv, S, D, causal, window,
+                                         dtype)
+    flops = fwd_flops // 2 * 5     # attention_bound counts two products
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * (3 * B * Hq * S * D + 4 * B * Hkv * S * D)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def k1b_cases():
+    """(B, Hq, Hkv, S, D, dtype, causal, window, model_layout, iters) of
+    every K1b case: the K1 sweep (``SWEEP`` x dtypes x ``MASKS``), the
+    llama3.2-1b train shape in the model layout (the main-path row) and
+    every config's attention (``MODEL_ATTENTION``), then ragged
+    non-causal S=100 at D=32 in both dtypes, a 300 window biting at
+    S=2048, D=128 at S=1024, hymba's 2048 window biting at S=4096 and
+    float32 causal ragged S=1000."""
+    cases = [(B, Hq, Hkv, S, D, dt, c, w, False, 5)
+             for (B, Hq, Hkv, S, D) in SWEEP
+             for dt in ("float32", "bfloat16") for c, w in MASKS]
+    cases += [LLAMA_PREFILL + (True, 5)]
+    cases += [(4, Hq, Hkv, S, D, "bfloat16", True, w, True, 3)
+              for Hq, Hkv, D, S, w in MODEL_ATTENTION.values()]
+    cases += [(2, 4, 2, 100, 32, "bfloat16", False, 0, False, 5),
+              (2, 4, 2, 100, 32, "float32", False, 0, False, 5),
+              (1, 32, 8, 2048, 64, "bfloat16", True, 300, False, 3),
+              (2, 16, 4, 1024, 128, "bfloat16", True, 0, False, 3),
+              (1, 25, 5, 4096, 64, "bfloat16", True, 2048, False, 2),
+              (1, 32, 8, 1000, 64, "float32", True, 8192, False, 3)]
+    return cases
+
+
+def k1b_inputs(case, gen):
+    """q, k, v and a seeded dO of one K1b case, in the kernel layout
+    (transposed (B,S,H,D) tensors for model-layout cases)."""
+    import torch
+    B, Hq, Hkv, S, D, dtype, causal, window, model_layout, _ = case
+    dt = getattr(torch, dtype)
+
+    def make(H):
+        if model_layout:
+            t = torch.randn((B, S, H, D), generator=gen, device="cuda")
+            return t.to(dt).transpose(1, 2)
+        return torch.randn((B, H, S, D), generator=gen, device="cuda").to(dt)
+
+    return make(Hq), make(Hkv), make(Hkv), make(Hq)
+
+
+def k1b_check(q, k, v, do, causal, window, bwd=None):
+    """K1b (``bwd``, default the binding's) twice and autograd of
+    ``ref.flash_attention_ref`` on the same kernel-layout inputs: the
+    gates of dq, dk, dv and "deterministic"."""
+    import torch
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+    bwd = bwd or fab.flash_attention_bwd
+    got = bwd(q, k, v, do, causal, window)
+    again = bwd(q, k, v, do, causal, window)
+    want, _ = _plain_grads(lambda *t: ref.flash_attention_ref(
+        *t, causal, window), (q, k, v), do)
+    errs = _grads_gate(("dq", "dk", "dv"), got, want)
+    errs["deterministic"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs["ok"] = errs["ok"] and errs["deterministic"]
+    return errs
+
+
+def k1b_case(case, gen):
+    """One K1b case (``k1b_inputs``), checked (raises if over a limit or
+    not bitwise deterministic), then K1b, the plain backward and SDPA's
+    backward timed on the card (the two backwards on a kept graph,
+    without their forwards)."""
+    import torch
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+    B, Hq, Hkv, S, D, dtype, causal, window, model_layout, iters = case
+    q, k, v, do = k1b_inputs(case, gen)
+    errs = k1b_check(q, k, v, do, causal, window)
+    if not errs["ok"]:
+        raise RuntimeError(f"flash_attention_bwd at {case[:8]}: "
+                           f"{json.dumps(errs)}")
+    ms = device_ms(lambda: fab.flash_attention_bwd(q, k, v, do, causal,
+                                                   window), iters)
+    _, plain = _plain_grads(lambda *t: ref.flash_attention_ref(
+        *t, causal, window), (q, k, v), do, retain=True)
+    plain_ms = cuda_ms(plain, max(1, iters // 2), warmup=1)
+    with torch.enable_grad():
+        leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+        lib_out = sdpa_call(*leaves, causal, window)()
+    library_ms = device_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, do, retain_graph=True), iters)
+    del lib_out, plain
+    bound_ms, bound_by, flops, nbytes = k1b_bound(B, Hq, Hkv, S, D, causal,
+                                                  window, dtype)
+    row = {"kernel": "flash_attention_bwd", "shape": [B, Hq, Hkv, S, D],
+           "dtype": dtype, "causal": causal, "window": window,
+           "model_layout": model_layout, **errs, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+           "bytes": nbytes}
+    log(f"[backward] K1b B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {dtype:8s} "
+        f"causal={int(causal)} window={window:5d} "
+        f"dq/dk/dv err={errs['dq']['max_rel_err']:.3g}/"
+        f"{errs['dk']['max_rel_err']:.3g}/{errs['dv']['max_rel_err']:.3g} "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    return row
+
+
+def k2b_bound(r, w, u):
+    """Least time for K2b's function: 14 D^2 float32 operations per (b,
+    h, t) (the forward state replayed, 3; the adjoint's update, 3; and
+    four sums over the D x D state, dk, dw, dr and dv, 2 each) at the f32
+    CUDA-core peak, or r, k, v, dO, w, u and S_0 read once and dr, dk, dv,
+    dw and du written once.  Returns (ms, "bytes" | "operations", flops,
+    bytes)."""
+    B, H, S, D = r.shape
+    n = B * H * S * D
+    nbytes = (7 * n * r.element_size() + 2 * n * w.element_size()
+              + 2 * u.numel() * u.element_size() + B * H * D * D * 4)
+    flops = 14 * B * H * S * D * D
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+# K2b: (B, H, S, D, dtype, kind, iters): the K2 sweep in both dtypes; the
+# rwkv6-7b train shape in the model layout (the main-path row; its plain
+# version runs on the first K2B_PLAIN_STEPS steps, the kernel on those
+# and, for determinism and time, on all 1024); ragged S=1000; D = 16 and
+# 128 at ragged lengths; S=17 (one chunk and a ragged step); "zero", decays
+# of exactly 0 over steps 40-44 and 0.01 over 32-95 (the model's
+# exp(-exp(x)) reaches 0, so S_{t-1} cannot be recovered from S_t).
+K2B_CASES = [(B, H, S, D, dt, "sweep", 5) for (B, H, S, D) in RWKV_SWEEP
+             for dt in ("float32", "bfloat16")]
+K2B_CASES += [RWKV_MAIN + ("bfloat16", "main", 5),
+              (1, 64, 1000, 64, "bfloat16", "ragged", 3),
+              (2, 4, 100, 16, "float32", "d16", 5),
+              (1, 8, 200, 128, "bfloat16", "d128", 5),
+              (2, 4, 17, 64, "bfloat16", "short", 5),
+              (1, 8, 160, 64, "float32", "zero", 5)]
+K2B_PLAIN_STEPS = 256
+# K2b at the full length is checked on batch 0's first 8 heads (each (b, h)
+# is its own scan) and du, a sum over the batch, over all
+K2B_LAYER_SLICE = (slice(0, 1), slice(0, 8))
+
+
+def k2b_check(r, k, v, w, u, s0, d_out, sl=None, bwd=None):
+    """K2b twice and autograd of ``ref.rwkv6_scan_ref``'s output on the
+    same kernel-layout inputs: the gates of dr, dk, dv, dw, du and
+    "deterministic".  ``sl``: the (batch, head) slice the plain version
+    runs on, the gradients but du compared on it (each (b, h) is its own
+    scan); du, a sum over the batch and the sequence, against its closed
+    form sum r k (dO . v), the plain gradient's own expression.  ``bwd``:
+    the kernel's wrapper, default the binding's."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan_bwd as rkb
+    bwd = bwd or rkb.rwkv6_scan_bwd
+    got = bwd(r, k, v, w, u, s0, d_out)
+    again = bwd(r, k, v, w, u, s0, d_out)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    if sl is None:
+        want, _ = _plain_grads(lambda *t: ref.rwkv6_scan_ref(*t, s0),
+                               (r, k, v, w, u), d_out)
+        errs = _grads_gate(("dr", "dk", "dv", "dw", "du"), got, want)
+    else:
+        b, h = sl
+        want, _ = _plain_grads(lambda *t: ref.rwkv6_scan_ref(*t, s0[b, h]),
+                               [t[b, h] for t in (r, k, v, w)] + [u[h]],
+                               d_out[b, h])
+        du = (r.float() * k.float() * (d_out.float() * v.float()).sum(
+            -1, keepdim=True)).sum((0, 2)).to(u.dtype)
+        errs = _grads_gate(("dr", "dk", "dv", "dw", "du"),
+                           [t[b, h] for t in got[:4]] + [got[4]],
+                           list(want[:4]) + [du])
+    errs.update(deterministic=same, ok=errs["ok"] and same)
+    return errs
+
+
+def k2b_inputs(case, gen):
+    """r, k, v, w, u, S_0 (``rwkv_inputs``: S_0 drawn non-zero) and a
+    seeded d_out of one K2b case; "zero" sets decays of exactly 0."""
+    import torch
+    B, H, S, D, dtype, kind, _ = case
+    r, k, v, w, u, s0 = rwkv_inputs(case, gen)
+    if kind == "zero":
+        w[:, :, 32:96] = 0.01
+        w[:, :, 40:45] = 0.0
+    if kind == "main":  # the model layout: (B,S,H,D) transposed
+        d_out = torch.randn((B, S, H, D), generator=gen,
+                            device="cuda").to(r.dtype).transpose(1, 2)
+    else:
+        d_out = torch.randn(r.shape, generator=gen,
+                            device="cuda").to(r.dtype)
+    return r, k, v, w, u, s0, d_out
+
+
+def k2b_check_case(kind, args, bwd=None):
+    """``k2b_check`` of one case's inputs; the "main" case's plain version
+    on its first ``K2B_PLAIN_STEPS`` steps, and at the full length on
+    ``K2B_LAYER_SLICE``.  Returns (errors, the plain version's inputs)."""
+    r, k, v, w, u, s0, d_out = args
+    if kind != "main":
+        return k2b_check(*args, bwd=bwd), list(args)
+    n = K2B_PLAIN_STEPS
+    head = [t[:, :, :n] for t in (r, k, v, w)]
+    errs = k2b_check(*head, u, s0, d_out[:, :, :n], bwd=bwd)
+    full = k2b_check(*args, sl=K2B_LAYER_SLICE, bwd=bwd)
+    errs.update(full_length=full, ok=errs["ok"] and full["ok"],
+                deterministic=errs["deterministic"] and full["deterministic"],
+                max_rel_err=max(errs["max_rel_err"], full["max_rel_err"]))
+    return errs, head + [u, s0, d_out[:, :, :n]]
+
+
+def k2b_case(case, gen):
+    """One K2b case (``k2b_inputs``), checked (raises if over a limit or
+    not bitwise deterministic), then K2b and the plain backward (on a kept
+    graph) timed on the card."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan_bwd as rkb
+    B, H, S, D, dtype, kind, iters = case
+    args = k2b_inputs(case, gen)
+    r, _, _, w, u, _, _ = args
+    errs, plain_args = k2b_check_case(kind, args)
+    cut = kind == "main"
+    if not errs["ok"]:
+        raise RuntimeError(f"rwkv6_scan_bwd at {case[:6]}: "
+                           f"{json.dumps(errs)}")
+    ms = device_ms(lambda: rkb.rwkv6_scan_bwd(*args), iters)
+    *ins, s_0, dd = plain_args
+    _, plain = _plain_grads(lambda *t: ref.rwkv6_scan_ref(*t, s_0), ins, dd,
+                            retain=True)
+    plain_ms = cuda_ms(plain, 1, warmup=0)
+    del plain
+    bound_ms, bound_by, flops, nbytes = k2b_bound(r, w, u)
+    row = {"kernel": "rwkv6_scan_bwd", "shape": [B, H, S, D], "dtype": dtype,
+           "kind": kind, **errs, "ms": ms, "plain_ms": plain_ms,
+           "plain_steps": K2B_PLAIN_STEPS if cut else S, "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+           "bytes": nbytes}
+    log(f"[backward] K2b B={B} H={H} S={S} D={D} {dtype:8s} {kind:6s} "
+        + " ".join(f"{g}={errs[g]['max_rel_err']:.3g}"
+                   for g in ("dr", "dk", "dv", "dw", "du"))
+        + f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"(S={row['plain_steps']}) bound_ms={bound_ms:.4f} ({bound_by})")
+    return row
+
+
+# K3b: (rows, D, dtype, scale dtype, kind, iters): the llama and rwkv6
+# norms in bf16 and float32, a ragged 1000 x 1600 (bf16 with a float32
+# scale, and float32), strided rows of x and of dy (each its own row
+# stride), a row count past a multiple of the blocks', bf16 x with a
+# float32 scale at 2048, and rows of magnitude 1e-3, where eps matters.
+K3B_CASES = [(4096, 2048, "bfloat16", "bfloat16", "main", 20),
+             (4096, 4096, "bfloat16", "bfloat16", "rwkv", 20),
+             (4096, 2048, "float32", "float32", "main", 10),
+             (4096, 4096, "float32", "float32", "rwkv", 10),
+             (1000, 1600, "bfloat16", "float32", "ragged", 10),
+             (1000, 1600, "float32", "float32", "ragged", 10),
+             (4096, 2048, "bfloat16", "bfloat16", "strided", 10),
+             (4097, 2048, "bfloat16", "bfloat16", "tail", 10),
+             (4096, 2048, "bfloat16", "float32", "f32scale", 10),
+             (1000, 2048, "float32", "float32", "small", 10)]
+
+
+def k3b_inputs(case, gen):
+    """x and scale (``rms_inputs``) and a seeded dy of one K3b case; for
+    "strided" dy is the rows of a tensor of another width than x's."""
+    import torch
+    rows, D, dtype, sdtype, kind, iters = case
+    x, scale = rms_inputs((rows, D, dtype, sdtype,
+                           "main" if kind == "f32scale" else kind, iters),
+                          gen)
+    dy = torch.randn((rows, D + 512) if kind == "strided" else (rows, D),
+                     generator=gen, device="cuda").to(x.dtype)
+    if kind == "strided":
+        dy = dy[:, 256:256 + D]
+    return x, scale, dy
+
+
+def k3b_check(x, scale, dy, eps=1e-5, bwd=None):
+    """K3b (``bwd``, default the binding's) twice and autograd of
+    ``ref.rmsnorm_ref``: dx row by row (float32 within BWD_F32_REL_TOL of
+    the row's largest value, bf16 within one bf16 ulp of it), dscale by
+    ``grad_gate``; "deterministic"."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm_bwd as rmb
+    bwd = bwd or rmb.rmsnorm_bwd
+    dx, ds = bwd(x, scale, dy, eps)
+    dx2, ds2 = bwd(x, scale, dy, eps)
+    (wx, ws), _ = _plain_grads(lambda *t: ref.rmsnorm_ref(*t, eps),
+                               (x, scale), dy)
+    tol = BWD_F32_REL_TOL if x.dtype == torch.float32 else RMS_BF16_ULP
+    rel = row_rel_err(dx, wx)
+    errs = {"dx": {"max_abs_err": float((dx.float() - wx.float()).abs().max()),
+                   "max_rel_err": rel, "gated_on": "max_rel_err", "tol": tol,
+                   "ok": rel <= tol and dx.dtype == x.dtype
+                   and dx.shape == x.shape},
+            "dscale": grad_gate(ds, ws)}
+    if ds.dtype != torch.float32:   # one bf16 rounding of a float32 sum
+        errs["dscale"].update(tol=RMS_BF16_ULP,
+                              ok=errs["dscale"]["max_rel_err"] <= RMS_BF16_ULP)
+    same = torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    return {**errs, "deterministic": same,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "max_rel_err": max(e["max_rel_err"] for e in errs.values()),
+            "ok": errs["dx"]["ok"] and errs["dscale"]["ok"] and same}
+
+
+def k3b_case(case, gen):
+    """One K3b case: a seeded dy (strided like x for "strided"), checked
+    (raises if over a limit or not bitwise deterministic), then K3b on x
+    and dy read from device memory (``cold_copies``), the plain backward
+    and ``F.rms_norm``'s backward (on kept graphs) timed on the card."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm_bwd as rmb
+    rows, D, dtype, sdtype, kind, iters = case
+    x, scale, dy = k3b_inputs(case, gen)
+    errs = k3b_check(x, scale, dy)
+    if not errs["ok"]:
+        raise RuntimeError(f"rmsnorm_bwd at {case[:5]}: {json.dumps(errs)}")
+    nbytes = 3 * rows * D * x.element_size() + 2 * D * scale.element_size()
+    pairs = list(zip(cold_copies(x, nbytes), cold_copies(dy, nbytes)))
+    ms = device_ms(cycled([lambda a=a, b=b: rmb.rmsnorm_bwd(a, scale, b)
+                           for a, b in pairs]), iters)
+    del pairs
+    _, plain = _plain_grads(lambda *t: ref.rmsnorm_ref(*t, 1e-5),
+                            (x, scale), dy, retain=True)
+    plain_ms = cuda_ms(plain, iters)
+    library_ms = None
+    if hasattr(F, "rms_norm") and scale.dtype == x.dtype:
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(),
+                      scale.detach().requires_grad_()]
+            lib_out = F.rms_norm(leaves[0], (D,), leaves[1], 1e-5)
+        library_ms = device_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dy, retain_graph=True), iters)
+        del lib_out
+    del plain
+    flops = 10 * rows * D
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    row = {"kernel": "rmsnorm_bwd", "shape": [rows, D], "dtype": dtype,
+           "scale_dtype": sdtype, "kind": kind, **errs, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bytes": nbytes, "flops": flops}
+    log(f"[backward] K3b {rows}x{D} {dtype:8s} scale {sdtype:8s} {kind:8s} "
+        f"dx_err={errs['dx']['max_rel_err']:.3g} "
+        f"dscale_err={errs['dscale']['max_rel_err']:.3g} kernel_ms={ms:.5f}"
+        f" plain_ms={plain_ms:.4f} library_ms={library_ms} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+    return row
+
+
+def phase_backward(seed: int):
+    """Every K1b, K2b and K3b case; returns (rows, {kernel: its main-path
+    row})."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    t0 = time.perf_counter()
+    rows = [k1b_case(c, gen) for c in k1b_cases()]
+    rows += [k2b_case(c, gen) for c in K2B_CASES]
+    rows += [k3b_case(c, gen) for c in K3B_CASES]
+    log(f"[backward] {len(rows)} cases in {time.perf_counter() - t0:.1f} s")
+    main = {"flash_attention_bwd": next(
+                r for r in rows if r["kernel"] == "flash_attention_bwd"
+                and r["model_layout"] and r["shape"] == [*LLAMA_PREFILL[:5]]),
+            "rwkv6_scan_bwd": next(r for r in rows if r.get("kind") == "main"
+                                   and r["kernel"] == "rwkv6_scan_bwd"),
+            "rmsnorm_bwd": next(r for r in rows if r["kernel"] == "rmsnorm_bwd"
+                                and r["kind"] == "main"
+                                and r["dtype"] == "bfloat16")}
+    return rows, main
 
 
 # ---------------------------------------------------------------------------
@@ -1724,10 +2209,13 @@ def _scan_check(blk, x, positions, cfg) -> dict:
 
 def _counters():
     from repro_torch.kernels import (commit_scan, find_alloc, flash_attention,
-                                     rmsnorm, rwkv6_scan)
+                                     flash_attention_bwd, rmsnorm,
+                                     rmsnorm_bwd, rwkv6_scan, rwkv6_scan_bwd)
     return {"flash_attention": flash_attention, "rwkv6_scan": rwkv6_scan,
             "rmsnorm": rmsnorm, "find_alloc": find_alloc,
-            "commit_scan": commit_scan}
+            "commit_scan": commit_scan,
+            "flash_attention_bwd": flash_attention_bwd,
+            "rwkv6_scan_bwd": rwkv6_scan_bwd, "rmsnorm_bwd": rmsnorm_bwd}
 
 
 def zero_launches():
@@ -2480,7 +2968,7 @@ def phase_simulate():
 
 
 def phase_events():
-    """``simulate_events`` of the fig5 trace of SIM_JOBS jobs on its grown
+    """``simulate_events`` of the fig5 trace of EVENT_JOBS jobs on its grown
     cluster under FAULT_MODEL, with ``solver="cuda"`` and ``"numpy"``:
     every result field but host time equal (average JCT, makespan, each
     finish time, evictions, lost GPU-seconds, events, consults, each
@@ -2494,13 +2982,13 @@ def phase_events():
     Returns that summary and the cuda run's result fields, which phase
     env's episode must reproduce."""
     from repro_torch.sim.faults import FailureModel
-    jobs, cluster, _ = fig5_round(SIM_JOBS, "grown")
+    jobs, cluster, _ = fig5_round(EVENT_JOBS, "grown")
     model = FailureModel(**FAULT_MODEL)
     runs = {s: run_sim("events", s, jobs, cluster, model,
                        profile=s == "cuda")
             for s in ("cuda", "numpy")}
     windows = model.sample(cluster)
-    out = {"jobs": SIM_JOBS, "windows": len(windows),
+    out = {"jobs": EVENT_JOBS, "windows": len(windows),
            "spot_windows": sum(w.kind == "spot" for w in windows),
            **_summary(runs)}
     log("[events] " + json.dumps(out))
@@ -2811,7 +3299,7 @@ def phase_env(events_fields):
     once more without the sanitizer: equal rows, each policy's wall."""
     from repro_torch.env.compare import DEFAULT_POLICIES
     from repro_torch.sim.faults import FailureModel
-    jobs, cluster, _ = fig5_round(SIM_JOBS, "grown")
+    jobs, cluster, _ = fig5_round(EVENT_JOBS, "grown")
     run = run_env(jobs, cluster, FailureModel(**FAULT_MODEL), "cuda",
                   profile=True)
     out = {"episode": {k: v for k, v in run.items()
@@ -3049,6 +3537,406 @@ def phase_obs(rounds_plain: dict, hadare_plain: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases train, train_rwkv, train_families, train_scheduled
+# ---------------------------------------------------------------------------
+
+# The optimizer of the full-size train phases: AdamW, a 2-step warmup into
+# a cosine over the 8 steps, decay 0.1, no clip.  At the random init the
+# llama3.2-1b gradient's global norm is ~1e11 (on both paths; the JAX
+# package's own gradient grows as fast with depth: its tied embedding's
+# input path through 16 unscaled layers): clipped to 1.0, every other
+# gradient falls below Adam's eps and the loss did not move in 8 steps at
+# lr 5e-4 on an H100.
+TRAIN_OC = dict(lr=1e-3, warmup_steps=2, total_steps=8, weight_decay=0.1,
+                grad_clip=float("inf"))
+TRAIN_STEPS = 8      # steps of the kernel path on one batch (gate 4)
+TRAIN_TIMED = 5      # the last five of them give the median step time
+# Per train phase: the model, its depth (None: full), the tokens a
+# sequence (4 sequences), the float32 depth-2 model's sequence (gate 2),
+# and how many plain-path steps are timed.  Cuts: rwkv6-7b 8 of 32 layers
+# (16 bytes a parameter of training state: bf16 weights and grads,
+# float32 moments and clipped grads; 7.6B parameters would not fit the
+# card's 80 GB, 8 layers are 2.29B); its float32 gate at 256 tokens and
+# one timed plain step (the plain scan is a 1024-step Python loop under
+# autograd).
+TRAIN = {"llama3.2-1b": {"kernel": "flash_attention", "layers": None,
+                         "seq": 1024, "f32_seq": 1024, "plain_steps": 6},
+         "rwkv6-7b": {"kernel": "rwkv6_scan", "layers": 8, "seq": 1024,
+                      "f32_seq": 256, "plain_steps": 1}}
+# gate 2, in float32 at depth 2 (deeper, the random init makes the two
+# paths chaotic): each parameter's gradient through the kernel path
+# against a float64 gradient (the plain path on a float64 copy of the
+# model), its max abs error within TRAIN_F32_GRAD_TOL of the largest
+# |float64 gradient| or within F64_FACTOR times the float32 plain path's
+# own error.  The init's near-argmax softmax makes wq's and wk's gradients
+# sensitive to the order of float32 sums: K1 and the einsum path rounded
+# blocks.0.wq's apart by 1.6e-3 of its largest value on an H100.
+TRAIN_F32_GRAD_TOL = 1e-3
+
+
+def train_launches(cfg) -> dict:
+    """The launches of one kernel-path train step: each block's kernel and
+    norms once in the forward, again in the backward's recompute when
+    ``cfg.remat`` checkpoints the blocks, and each backward kernel once a
+    block (and the final norm's)."""
+    L = cfg.n_layers
+    want = {name: 0 for name in _counters()}
+    kern = "rwkv6_scan" if cfg.family == "ssm" else "flash_attention"
+    again = 2 if cfg.remat else 1
+    want[kern] = L * again
+    want[kern + "_bwd"] = L
+    norms = norms_per_forward(cfg)
+    if norms:
+        want["rmsnorm"] = norms + (again - 1) * (norms - 1)
+        want["rmsnorm_bwd"] = norms
+    return want
+
+
+@contextlib.contextmanager
+def _checked_backward(out: dict):
+    """While active, every K1b, K2b and K3b call is checked as it runs
+    against autograd of its plain version on its own inputs (``k1b_check``
+    etc.; K2b on ``K2B_LAYER_SLICE``); the gates are appended to
+    ``out[kernel]``, in call order (the layers from the last)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import rmsnorm_bwd as rmb
+    from repro_torch.kernels import rwkv6_scan_bwd as rkb
+    real = {"flash_attention_bwd": (fab, fab.flash_attention_bwd),
+            "rwkv6_scan_bwd": (rkb, rkb.rwkv6_scan_bwd),
+            "rmsnorm_bwd": (rmb, rmb.rmsnorm_bwd)}
+    checks = {"flash_attention_bwd": lambda fn, *a, **kw: k1b_check(
+                  *a, kw.get("causal", True), kw.get("window", 0), bwd=fn),
+              "rwkv6_scan_bwd": lambda fn, *a, **kw: k2b_check(
+                  *a, sl=K2B_LAYER_SLICE, bwd=fn),
+              "rmsnorm_bwd": lambda fn, *a, **kw: k3b_check(*a, bwd=fn)}
+
+    def wrap(name):
+        mod, fn = real[name]
+
+        def checked(*a, **kw):
+            res = fn(*a, **kw)
+            n = mod.LAUNCHES  # the check's own launches do not count
+            out.setdefault(name, []).append(checks[name](fn, *a, **kw))
+            mod.LAUNCHES = n
+            return res
+        return mock.patch.object(mod, name, checked)
+    with wrap("flash_attention_bwd"), wrap("rwkv6_scan_bwd"), \
+            wrap("rmsnorm_bwd"):
+        yield out
+
+
+def _train_batch(cfg, seq: int, seed: int) -> dict:
+    """One batch of 4 sequences of ``seq`` tokens from
+    ``repro_torch.data.pipeline`` (the vlm's patches and encdec's frames
+    with it), on the card."""
+    from repro_torch.data.pipeline import SyntheticLM, data_config
+    from repro_torch.models.model import batch_tensors
+    nb = next(SyntheticLM(data_config(cfg, 4, seq, seed)).batches())
+    return batch_tensors(nb, cfg, "cuda")
+
+
+def _train_steps(model, cfg, oc, batch, steps: int, want: dict,
+                 checks: dict = None):
+    """``steps`` train steps on one batch from a fresh optimizer state,
+    each timed on the host's clock (the step reads its loss on the host:
+    one sync) with every launch count set to 0 just before it and read
+    just after, each run's counts equal to ``want``.  With ``checks``, the
+    second step runs under ``_checked_backward(checks)``.  Returns
+    (losses, grad norms, walls, counts, the optimizer state)."""
+    import torch
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_train_step, trainable
+    step = make_train_step(cfg, oc)
+    st = init_opt_state(trainable(model), oc)
+    losses, norms, walls = [], [], []
+    for i in range(steps):
+        checked = (_checked_backward(checks) if checks is not None and i == 1
+                   else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        zero_launches()  # the run starts here
+        t0 = time.perf_counter()
+        with checked:
+            model, st, m = step(model, st, batch)
+            losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+        launches = read_launches()  # ... and ends here
+        norms.append(float(m["grad_norm"]))
+        _check_launches(f"{cfg.name} train step ({cfg.attn_impl})", launches,
+                        want)
+    return losses, norms, walls, launches, st
+
+
+def _train_split(model, cfg, oc, st, batch) -> dict:
+    """One kernel-path train step split by CUDA events into the forward
+    (``loss_fn``), the backward (``autograd.grad``, with remat's
+    recompute) and the optimizer (``apply_updates`` and the write-back):
+    card time from each part's first launch to its last."""
+    import torch
+    from repro_torch.models.model import loss_fn
+    from repro_torch.train.optimizer import apply_updates
+    from repro_torch.train.train_step import load_params, trainable
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ps = trainable(model)
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss, _ = loss_fn(model, cfg, batch)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, list(ps.values()))
+    ev[2].record()
+    new, _, _ = apply_updates({n: p.detach() for n, p in ps.items()},
+                              dict(zip(ps, grads)), st, oc)
+    load_params(model, new)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return {part: ev[i].elapsed_time(ev[i + 1]) for i, part in
+            enumerate(("forward_ms", "backward_ms", "optimizer_ms"))}
+
+
+def _attend_f64(q, k, v, mask):
+    """``models.attention.attend`` with its softmax in the inputs' dtype
+    (float64 here) instead of float32: the reference of gate 2."""
+    import torch
+    from repro_torch.models import attention as attn
+    scores = attn._grouped_scores(q, k)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, attn.NEG_INF)
+    return attn._grouped_out(torch.softmax(scores, dim=-1), v)
+
+
+def _f32_grad_agreement(arch: str, seed: int, seq: int) -> dict:
+    """Gate 2: the float32 model at full width and depth 2, every
+    parameter's gradient through the kernel path (its K1b/K2b/K3b checked
+    as they run, float32-tight) and through the plain path, each against
+    the plain path's on a float64 copy of the model with its attention's
+    softmax in float64 too (``_attend_f64``; the other parts the port
+    computes in float32 by design, RoPE, the norms, the final log-softmax
+    and rwkv's decay and scan, stay float32 there)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.train.train_step import trainable
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    model = init_params(cfg, seed, device="cuda")
+    ps = trainable(model)
+    batch = _train_batch(cfg, seq, seed)
+    grads, checks = {}, {}
+    for impl in ("pallas", "xla", "float64"):
+        c = dataclasses.replace(cfg, attn_impl="pallas" if impl == "pallas"
+                                else "xla")
+        if impl == "float64":
+            model.double()
+        with (_checked_backward(checks) if impl == "pallas"
+              else mock.patch.object(attn, "attend", _attend_f64)
+              if impl == "float64" else contextlib.nullcontext()):
+            loss, _ = loss_fn(model, c, batch)
+            grads[impl] = torch.autograd.grad(loss, list(ps.values()))
+        del loss
+    worst, rows = 0.0, {}
+    for i, n in enumerate(ps):
+        exact = grads["float64"][i]
+        size = float(exact.abs().max())
+        err_k = float((grads["pallas"][i].double() - exact).abs().max())
+        err_x = float((grads["xla"][i].double() - exact).abs().max())
+        limit = max(F64_FACTOR * err_x, TRAIN_F32_GRAD_TOL * size)
+        rows[n] = {"kernel_err": err_k / max(size, 1e-300),
+                   "plain_err": err_x / max(size, 1e-300),
+                   "ok": err_k <= limit}
+        worst = max(worst, err_k / max(limit, 1e-300))
+    bad = [n for n, r in rows.items() if not r["ok"]]
+    top = sorted(rows, key=lambda n: -rows[n]["kernel_err"])[:3]
+    res = {"layers": 2, "seq": seq, "tol": TRAIN_F32_GRAD_TOL,
+           "f64_factor": F64_FACTOR, "worst_over_limit": worst,
+           "largest_errors": {n: rows[n] for n in top}, "failed": bad,
+           "kernel_checks": {k: [c["ok"] for c in v]
+                             for k, v in checks.items()},
+           "ok": not bad and all(c["ok"] for v in checks.values()
+                                 for c in v)}
+    del model, grads
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train(seed: int, arch: str) -> dict:
+    """Training at full width (``TRAIN``'s depth): ``TRAIN_STEPS``
+    kernel-path steps on one batch, each with exact launch counts (gate 3)
+    and a finite loss and grad norm, the last loss below the first (gate
+    4); during step 2 every K1b/K2b/K3b call checked against autograd of
+    its plain version on its own inputs (gate 1); the plain path timed;
+    one step split by part; the float32 depth-2 gradients of the two paths
+    (gate 2)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import OptConfig
+    spec = TRAIN[arch]
+    base = get_config(arch)
+    if spec["layers"]:
+        base = dataclasses.replace(base, n_layers=spec["layers"])
+    cfg = dataclasses.replace(base, attn_impl="pallas")
+    oc = OptConfig(**TRAIN_OC)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed, device="cuda")
+    n = sum(p.numel() for p in model.parameters())
+    item = model.embed.element_size()
+    batch = _train_batch(cfg, spec["seq"], seed)
+    B, S = batch["tokens"].shape
+    reckon = {"params_gb": n * item / 1e9, "grads_gb": n * item / 1e9,
+              "moments_gb": 8 * n / 1e9, "clipped_grads_gb": 4 * n / 1e9,
+              "logits_f32_gb": 3 * 4 * B * S * cfg.vocab_size / 1e9}
+    reckon["total_gb"] = sum(reckon.values())
+    log(f"[train] {arch}: {cfg.n_layers} of {get_config(arch).n_layers} "
+        f"layers, {n / 1e9:.3f}B parameters, remat {cfg.remat}, optimizer "
+        f"{json.dumps(TRAIN_OC)}; reckoned memory {json.dumps(reckon)} + "
+        f"the activations remat keeps")
+    want = train_launches(cfg)
+    log(f"[train] {arch}: a kernel-path train step must launch "
+        f"{json.dumps({k: v for k, v in want.items() if v})}")
+    checks = {}  # step 2's backward kernel calls, checked (gate 1)
+    losses, norms, walls, launches, st = _train_steps(
+        model, cfg, oc, batch, TRAIN_STEPS, want, checks)
+    split = _train_split(model, cfg, oc, st, batch)
+    peak = torch.cuda.max_memory_allocated()
+    wall = statistics.median(walls[-TRAIN_TIMED:])
+    del model, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the plain path on the same init
+    model = init_params(dataclasses.replace(cfg, attn_impl="xla"), seed,
+                        device="cuda")
+    pl, pnorms, pwalls, _, _ = _train_steps(
+        model, dataclasses.replace(cfg, attn_impl="xla"), oc, batch,
+        spec["plain_steps"], {name: 0 for name in _counters()})
+    plain_wall = statistics.median(pwalls[-TRAIN_TIMED:])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = _f32_grad_agreement(arch, seed, spec["f32_seq"])
+    res = {"arch": arch, "layers": cfg.n_layers, "params": n, "batch": B,
+           "seq": S, "optimizer": TRAIN_OC, "reckoned_memory": reckon,
+           "launches": launches, "losses": losses, "grad_norms": norms,
+           "step_ms": wall * 1e3, "step_ms_runs": [w * 1e3 for w in walls],
+           "tok_per_s": B * S / wall, "plain_step_ms": plain_wall * 1e3,
+           "plain_step_ms_runs": [w * 1e3 for w in pwalls],
+           "plain_tok_per_s": B * S / plain_wall, "plain_losses": pl,
+           "plain_grad_norms": pnorms,
+           "split": split, "max_memory_allocated_gb": peak / 1e9,
+           "layer_checks": {k: [{g: c[g]["max_rel_err"] for g in c
+                                 if isinstance(c[g], dict)
+                                 and "max_rel_err" in c[g]}
+                                for c in v] for k, v in checks.items()},
+           "f32_depth_2": f32,
+           "phase_s": time.perf_counter() - t_phase}
+    log("[train] " + json.dumps(res))
+    log(f"[train] {arch}: step {wall * 1e3:.1f} ms ({B * S / wall:.0f} tok/s)"
+        f", plain path {plain_wall * 1e3:.1f} ms; split {json.dumps(split)};"
+        f" peak {peak / 1e9:.2f} GB; phase took {res['phase_s']:.1f} s")
+    bad = [(k, i) for k, v in checks.items() for i, c in enumerate(v)
+           if not c["ok"]]
+    counted = {k: len(v) for k, v in checks.items()}
+    if bad or counted != {k: v for k, v in want.items()
+                          if k.endswith("_bwd") and v}:
+        raise RuntimeError(f"train {arch}: backward kernel checks failed at "
+                           f"{bad} (calls {counted}): "
+                           f"{json.dumps(res['layer_checks'])}")
+    if not all(math.isfinite(x) for x in losses + norms) or \
+            not losses[-1] < losses[0]:
+        raise RuntimeError(f"train {arch}: losses {losses}, grad norms "
+                           f"{norms}")
+    if not f32["ok"]:
+        raise RuntimeError(f"train {arch} float32 depth 2: {json.dumps(f32)}")
+    return res
+
+
+def phase_train_families(seed: int) -> dict:
+    """One kernel-path train step of each of the ten configs at
+    ``reduced(max_d_model=128)`` (float32, 2 layers, head dim 32) on 4 x
+    64 tokens from ``data.pipeline``: a finite loss, every parameter
+    tensor of the step's trainable set still finite and some moved, and
+    the launches equal to ``train_launches``."""
+    import torch
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import OptConfig
+    out = {}
+    t0 = time.perf_counter()
+    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    for arch in list_archs():
+        cfg = dataclasses.replace(get_config(arch).reduced(max_d_model=128),
+                                  attn_impl="pallas")
+        model = init_params(cfg, seed, device="cuda")
+        before = [p.detach().clone() for p in model.parameters()]
+        losses, _, walls, launches, _ = _train_steps(
+            model, cfg, oc, _train_batch(cfg, 64, seed), 1,
+            train_launches(cfg))
+        moved = sum(not torch.equal(a, p) for a, p in
+                    zip(before, model.parameters()))
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in model.parameters())
+        out[arch] = {"loss": losses[0], "wall_s": walls[0],
+                     "params_moved": moved, "param_tensors": len(before),
+                     "launches": {k: v for k, v in launches.items() if v}}
+        log(f"[train_families] {arch}: {json.dumps(out[arch])}")
+        if not (math.isfinite(losses[0]) and moved and finite):
+            raise RuntimeError(f"train_families {arch}: {out[arch]}, "
+                               f"finite params {finite}")
+    log(f"[train_families] took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_train_scheduled(seed: int) -> dict:
+    """``repro_torch.launch.train.run_scheduled_training`` on the card
+    through the kernels (``attn_impl="pallas"``) with its three default
+    archs, for hadare, hadar and gavel: the assertions of
+    ``tests/test_system.py`` (HadarE's CRU 1.0; every eval loss finite and
+    below its job's initial loss; HadarE's rounds at or below Hadar's),
+    with the rounds, CRU, wall, eval losses and launches of each run."""
+    import torch
+    from repro_torch.launch import train as lt
+    archs = ["llama3.2-1b", "rwkv6-7b", "qwen3-moe-235b-a22b"]
+    init = {a: lt.RealJob(i, a, 48, seed=seed + i, device="cuda",
+                          attn_impl="pallas").eval_loss()
+            for i, a in enumerate(archs)}
+    out = {"initial_eval_losses": init}
+    for sched in ("hadare", "hadar", "gavel"):
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        res = lt.run_scheduled_training(sched, archs=archs, seed=seed,
+                                        verbose=False, device="cuda",
+                                        attn_impl="pallas")
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        out[sched] = {k: res[k] for k in ("rounds", "cru", "wall_seconds",
+                                          "mean_finish_round", "eval_losses",
+                                          "throughput_coverage")}
+        out[sched].update(wall_s=wall, launches={k: v for k, v in
+                                                 launches.items() if v})
+        log(f"[train_scheduled] {sched}: {json.dumps(out[sched])}")
+        losses = res["eval_losses"]
+        if not all(math.isfinite(losses[a]) and losses[a] < init[a]
+                   for a in archs):
+            raise RuntimeError(f"train_scheduled {sched}: eval losses "
+                               f"{losses}, initial {init}")
+        for name in ("flash_attention", "flash_attention_bwd", "rwkv6_scan",
+                     "rwkv6_scan_bwd", "rmsnorm", "rmsnorm_bwd"):
+            if not launches[name]:
+                raise RuntimeError(f"train_scheduled {sched}: {name} never "
+                                   f"launched: {launches}")
+    if out["hadare"]["cru"] != 1.0:
+        raise RuntimeError(f"train_scheduled: HadarE's CRU "
+                           f"{out['hadare']['cru']}, want 1.0")
+    if not out["hadare"]["rounds"] <= out["hadar"]["rounds"]:
+        raise RuntimeError(f"train_scheduled: HadarE took "
+                           f"{out['hadare']['rounds']} rounds, Hadar "
+                           f"{out['hadar']['rounds']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3079,6 +3967,7 @@ def main(argv=None) -> int:
                 log(f"[build] {line.strip()}")
 
     rows, main_rows = phase_kernel(args.seed)
+    bwd_rows, bwd_main = phase_backward(args.seed)
     prefill = phase_prefill(args.seed, "llama3.2-1b")
     serve = phase_serve(args.seed, "llama3.2-1b")
     prefill_rwkv = phase_prefill(args.seed, "rwkv6-7b")
@@ -3102,6 +3991,13 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t1:.1f} s")
     log(f"[prefill] the hybrid, vlm and encdec phases took "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train = phase_train(args.seed, "llama3.2-1b")
+    train_rwkv = phase_train(args.seed, "rwkv6-7b")
+    train_families = phase_train_families(args.seed)
+    train_scheduled = phase_train_scheduled(args.seed)
+    log(f"[train] the phases train, train_rwkv, train_families and "
+        f"train_scheduled took {time.perf_counter() - t0:.1f} s")
     schedule = phase_schedule()
     sim, rounds_plain = phase_simulate()
     events, events_fields = phase_events()
@@ -3130,6 +4026,28 @@ def main(argv=None) -> int:
                     "library_ms")}}
                for name, (replaces, launches) in paths.items()]
     kernels[-1]["us_per_step"] = main_rows["commit_scan"]["us_per_step"]
+    # the backward kernels: each replaces the JAX package's autodiff
+    # through its plain version (there is no backward Pallas kernel); the
+    # counts are those of one full-size train step
+    for name, launches in (("flash_attention_bwd", train["launches"]),
+                           ("rwkv6_scan_bwd", train_rwkv["launches"]),
+                           ("rmsnorm_bwd", train["launches"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": "src/repro/train/train_step.py:32",
+            "launches": launches[name],
+            **{k: bwd_main[name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            "launches_per_train_step": {
+                r["arch"]: r["launches"][name] for r in (train, train_rwkv)},
+            "launches_per_family_step": {
+                arch: r["launches"].get(name, 0)
+                for arch, r in train_families.items()}})
+    kernels[0]["launches_per_train_step"] = {
+        r["arch"]: r["launches"]["flash_attention"] for r in (train,
+                                                              train_rwkv)}
     # K1 and K3 per forward of each model path, and K1 at each config's
     # attention shape (``MODEL_ATTENTION``)
     forwards = {r["arch"]: r["launches"] for r in (
@@ -3166,7 +4084,11 @@ def main(argv=None) -> int:
                                    "schedule": schedule, "simulate": sim,
                                    "events": events, "mini": mini,
                                    "hadare": hadare, "env": env,
-                                   "obs": obs, "kernels": kernels},
+                                   "obs": obs, "backward_cases": bwd_rows,
+                                   "train": train, "train_rwkv": train_rwkv,
+                                   "train_families": train_families,
+                                   "train_scheduled": train_scheduled,
+                                   "kernels": kernels},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

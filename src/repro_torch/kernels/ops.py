@@ -2,7 +2,10 @@
 
 A tensor on the card goes to the kernel; a tensor on the CPU goes to the
 kernel's plain version in ``ref``.  Nothing is padded: each kernel takes a
-ragged sequence length (or row count) itself.
+ragged sequence length (or row count) itself.  The three model kernels go
+through autograd ``Function``s, so the kernel path trains: on the card K1,
+K2 and K3 forward and K1b, K2b and K3b backward; on the CPU the plain
+versions and their autograd.
 """
 from __future__ import annotations
 
@@ -10,46 +13,35 @@ import torch
 
 from repro_torch.kernels import commit_scan as _commit
 from repro_torch.kernels import find_alloc as _find
-from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ref
-from repro_torch.kernels import rmsnorm as _rms
-from repro_torch.kernels import rwkv6_scan as _rwkv
+from repro_torch.kernels import rmsnorm_bwd as _rmsb
+from repro_torch.kernels import rwkv6_scan_bwd as _rwkvb
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Model layout q:(B,S,Hq,Dh), k/v:(B,S,Hkv,Dh) -> (B,S,Hq,Dh),
     contiguous: the kernel writes it in place through the transposed view,
-    so the output projection flattens the heads without a copy."""
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if q.device.type == "cpu":
-        out.transpose(1, 2).copy_(
-            ref.flash_attention_ref(qt, kt, vt, causal, window))
-    else:
-        _fa.flash_attention(qt, kt, vt, causal=causal, window=window,
-                            out=out.transpose(1, 2))
-    return out
+    so the output projection flattens the heads without a copy.  K1, and
+    K1b in the backward (``flash_attention_bwd.FlashAttention``)."""
+    return _fab.FlashAttention.apply(q, k, v, causal, window)
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
     """Model layout r/k/v/w:(B,S,H,Dh), u:(H,Dh), state:(B,H,Dh,Dh).
-    Returns (out (B,S,H,Dh), new_state float32)."""
-    rt, kt, vt, wt = (t.transpose(1, 2) for t in (r, k, v, w))
-    if r.device.type == "cpu":
-        out, s = ref.rwkv6_scan_ref(rt, kt, vt, wt, u, state)
-    else:
-        out, s = _rwkv.rwkv6_scan(rt, kt, vt, wt, u, state)
-    return out.transpose(1, 2), s
+    Returns (out (B,S,H,Dh), new_state float32).  K2, and K2b in the
+    backward (``rwkv6_scan_bwd.RWKV6Scan``: no gradient for either
+    state)."""
+    return _rwkvb.RWKV6Scan.apply(r, k, v, w, u, state)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
-    """x (..., D), scale (D,) -> x's shape and dtype (K3)."""
-    if x.device.type == "cpu":
-        return ref.rmsnorm_ref(x, scale, eps)
-    return _rms.rmsnorm(x, scale, eps)
+    """x (..., D), scale (D,) -> x's shape and dtype (K3, and K3b in the
+    backward: ``rmsnorm_bwd.RMSNorm``)."""
+    return _rmsb.RMSNorm.apply(x, scale, eps)
 
 
 def find_alloc(*args, n_nodes: int, comm_frac: float, wmax: int):

@@ -56,16 +56,24 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, conv_state: torch.Tensor):
 def _ssm_scan(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor):
     """h_t = a_t * h_{t-1} + bx_t over dim 1.  a: (B,S,Di,1) (the decay
     is the same for every state channel); bx: (B,S,Di,N), overwritten
-    with h; h0: (B,Di,N).  Returns (h, h[:, -1]).
+    with h, unless autograd records the scan (then each step is a new
+    tensor, with the same sums); h0: (B,Di,N).  Returns (h, h[:, -1]).
 
     h0 is folded into the first element, then step d (1, 2, 4, ...)
     combines each element t >= d with element t - d by the reference's
     ``combine(l, r) = (a_l a_r, a_r b_l + b_r)``; at S = 1 (decode) no
     step runs."""
-    bx[:, 0] += a[:, 0] * h0
+    taped = torch.is_grad_enabled() and (a.requires_grad or bx.requires_grad)
+    if taped:
+        bx = torch.cat([bx[:, :1] + a[:, :1] * h0[:, None], bx[:, 1:]], 1)
+    else:
+        bx[:, 0] += a[:, 0] * h0
     S, d = a.shape[1], 1
     while d < S:
-        bx[:, d:] += a[:, d:] * bx[:, :-d]
+        if taped:
+            bx = torch.cat([bx[:, :d], bx[:, d:] + a[:, d:] * bx[:, :-d]], 1)
+        else:
+            bx[:, d:] += a[:, d:] * bx[:, :-d]
         if 2 * d < S:
             a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2

@@ -1,19 +1,26 @@
-"""Model assembly: init, forward (prefill), the encoder and the decode step.
+"""Model assembly: init, forward (prefill), the loss, the encoder and the
+decode step.
 
-A Python loop over the layers replaces the JAX package's ``lax.scan``;
-``cfg.remat`` is ignored, since nothing here keeps activations for a
-backward pass.  Every family of the JAX package: dense, moe, ssm (rwkv6),
-hybrid (hymba), vlm (stub patch embeddings ahead of the text) and encdec
-(whisper: an encoder over stub frame embeddings, cross K/V per decoder
-layer, sinusoidal positions and LayerNorms).
+A Python loop over the layers replaces the JAX package's ``lax.scan``.
+While grad is enabled and the model trains, ``cfg.remat`` wraps each
+block, decoder and encoder, in ``torch.utils.checkpoint``
+(``jax.checkpoint`` in the JAX package): a block keeps only its input for
+the backward pass and runs its forward again there, kernels included.  Every family of the JAX package:
+dense, moe, ssm (rwkv6), hybrid (hymba), vlm (stub patch embeddings ahead
+of the text) and encdec (whisper: an encoder over stub frame embeddings,
+cross K/V per decoder layer, sinusoidal positions and LayerNorms).
+Parameters are created frozen; the training entry points
+(``repro_torch.train``) turn on ``requires_grad`` for what they train.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import attention as attn
@@ -125,6 +132,23 @@ def _final_norm(model: Transformer, cfg: ModelConfig, norm, x):
     return norm(x, model.final_norm, cfg.norm_eps)
 
 
+def _remat(model, cfg: ModelConfig) -> bool:
+    """Whether ``forward`` checkpoints each block: ``cfg.remat`` asks for
+    it (the JAX package's ``jax.checkpoint`` around each block,
+    model.py:93-96), grad is enabled and the model trains (a frozen
+    model's forward keeps nothing for a backward pass)."""
+    return (cfg.remat and torch.is_grad_enabled()
+            and any(p.requires_grad for blk in model.blocks
+                    for p in blk.parameters()))
+
+
+def _run_block(remat: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` with ``remat``."""
+    if remat:
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 # ---------------------------------------------------------------------------
 # encoder (whisper): the frontend's embeddings arrive precomputed (a stub)
 # ---------------------------------------------------------------------------
@@ -136,8 +160,9 @@ def encode(model: Transformer, cfg: ModelConfig,
     positions = torch.arange(frames.shape[1], device=frames.device)
     x = frames + _sinusoid(positions, cfg.d_model).to(frames.dtype)
     fn = B.encoder_block_fwd(cfg)
+    remat = _remat(model, cfg)
     for blk in model.enc:
-        x = fn(blk, x, positions)
+        x = _run_block(remat, fn, blk, x, positions)
     return layernorm(x, model.enc_norm, model.enc_norm_b, cfg.norm_eps)
 
 
@@ -175,14 +200,41 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict,
     enc_out = (encode(model, cfg, batch["frames"])
                if cfg.family == "encdec" else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = _remat(model, cfg)
     for blk in model.blocks:
         extra = None if enc_out is None else attn.encoder_kv(blk, enc_out)
-        x, a = fn(blk, x, positions, extra)
+        x, a = _run_block(remat, fn, blk, x, positions, extra)
         aux = aux + a
     x = _final_norm(model, cfg, B.norm_fn(cfg), x)
     if prefix:
         x = x[:, prefix:]
     return _unembed(model, cfg, x), aux
+
+
+def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict):
+    """Next-token cross entropy + the MoE aux (``repro.models.model.
+    loss_fn``, model.py:182-191): the CE over ``log_softmax`` of the
+    logits in float32, labels == -1 masked.  Returns (loss, {"ce", "aux"}),
+    0-dim float32 tensors."""
+    logits, aux = forward(model, cfg, batch)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    lsm = torch.log_softmax(logits.float(), dim=-1)
+    ll = lsm.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    ce = -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def batch_tensors(batch: dict, cfg: ModelConfig,
+                  device: DeviceLike = None) -> dict:
+    """A NumPy batch (``repro_torch.data.pipeline``) as tensors on
+    ``device`` (default: the card): tokens and labels int64, the stub
+    frontends' ``patches``/``frames`` in the model's dtype."""
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    return {k: torch.from_numpy(np.asarray(v)).to(
+        dev, torch.long if np.issubdtype(np.asarray(v).dtype, np.integer)
+        else dt) for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@
 ``chip_compare.py``, and it serves all ten configs (every family),
 prefills vlm and encdec, schedules and simulates under faults, HadarE, the
 env, the sanitized policy comparison and the observer included, with both
-blocked; ``python -m repro_torch.obs`` runs with both blocked too."""
+blocked; ``python -m repro_torch.obs`` runs with both blocked too, and so
+does training: a train step of each family on both paths, a checkpoint
+round trip and a HadarE-scheduled run."""
 import ast
 import os
 import subprocess
@@ -73,7 +75,17 @@ def test_no_jax_or_repro_imports():
             "src/repro_torch/obs/__main__.py",
             "src/repro_torch/obs/explain.py",
             "src/repro_torch/obs/metrics.py",
-            "src/repro_torch/obs/trace.py"} <= names
+            "src/repro_torch/obs/trace.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/train/_tree.py",
+            "src/repro_torch/train/optimizer.py",
+            "src/repro_torch/train/train_step.py",
+            "src/repro_torch/train/checkpoint.py",
+            "src/repro_torch/train/consolidate.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/kernels/flash_attention_bwd.py",
+            "src/repro_torch/kernels/rwkv6_scan_bwd.py",
+            "src/repro_torch/kernels/rmsnorm_bwd.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in FORBIDDEN]
@@ -238,3 +250,51 @@ def test_obs_cli_runs_with_jax_and_repro_blocked(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "sim-time/interval" in res.stdout
+
+
+TRAIN_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import dataclasses
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import batch_for
+from repro_torch.launch.train import EmuNode, run_scheduled_training
+from repro_torch.models.model import batch_tensors, init_params
+from repro_torch.train import checkpoint
+from repro_torch.train.optimizer import OptConfig, init_opt_state
+from repro_torch.train.train_step import make_train_step, trainable
+oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+for arch in ("llama3.2-1b", "rwkv6-7b", "hymba-1.5b", "whisper-tiny"):
+    for impl in ("xla", "pallas"):
+        cfg = dataclasses.replace(
+            get_config(arch).reduced(n_layers=1, max_d_model=128),
+            attn_impl=impl)
+        model = init_params(cfg, seed=0, device="cpu")
+        st = init_opt_state(trainable(model), oc)
+        b = batch_tensors(batch_for(cfg, 2, 8), cfg, "cpu")
+        model, st, m = make_train_step(cfg, oc)(model, st, b)
+        assert m["loss"].isfinite() and int(st.step) == 1
+        print("trained", arch, impl, float(m["loss"]))
+checkpoint.save(sys.argv[1], {"s": st})
+assert int(checkpoint.restore(sys.argv[1], device="cpu")["s"].step) == 1
+out = run_scheduled_training(
+    "hadare", archs=["llama3.2-1b"], target_steps=4, base_steps_per_round=2,
+    nodes=[EmuNode("a", "rtx3090", 1.0), EmuNode("b", "t4", 0.5)],
+    verbose=False, device="cpu", attn_impl="pallas")
+assert out["cru"] == 1.0, out
+print("scheduled training", out["rounds"], out["eval_losses"])
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_trains_with_jax_and_repro_blocked(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    res = subprocess.run([sys.executable, "-c", TRAIN_WITHOUT_JAX,
+                          str(tmp_path / "ck.npz")], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    for arch in ("llama3.2-1b", "rwkv6-7b", "hymba-1.5b", "whisper-tiny"):
+        assert f"trained {arch} pallas" in res.stdout
+    assert "scheduled training" in res.stdout
