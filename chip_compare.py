@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Side-by-side timing of K2-K5 built from several checkouts, on one
+"""Side-by-side timing of K1b-K5 built from several checkouts, on one
 card.
 
     python3 chip_compare.py [--tree NAME=DIR ...] [--kernels rmsnorm,rwkv6_scan]
                             [--rounds N] [--out FILE.json]
     python3 chip_compare.py --tree base=DIR --kernels commit_scan
     python3 chip_compare.py --tree base=DIR --kernels find_alloc
+    python3 chip_compare.py --tree base=DIR --kernels flash_attention_bwd
 
 Builds each named kernel (``src/repro_torch/kernels/csrc/<k>.cu``) from
 this checkout ("this") and from each ``--tree`` (another checkout: the
@@ -37,6 +38,18 @@ backwards, ``--rounds`` times:
   the device time of all the forward's work, which also sees what the
   kernel leaves in L2 for the next one.
 
+K1b (``flash_attention_bwd``): each build runs through its own tree's
+binding module (``k1b_wrapper``: a tree's C entry may take other
+arguments), checked by ``chip_smoke.k1b_check`` (dq, dk, dv gated, twice
+and bitwise) and timed at the llama3.2-1b train shape (model layout) and
+at every ``chip_smoke.MODEL_ATTENTION`` shape: "cold", on the card alone
+(``device_ms``) with q, k, v and dO cycled through copies past L2, SDPA's
+backward beside it (a yardstick only); and "train step", the mean device
+time of one K1b call (its passes' kernels summed) over the 16 of a full
+llama3.2-1b kernel-path train step's backward (``torch.profiler``), its
+part in each of K1b's three passes ("train step pass 0-2"), and "backward
+all", the device time of that whole backward.
+
 For K3, ``F.rms_norm`` takes its cold and warm turns beside the builds (a
 yardstick only).  K4 and K5 have no forward.  K4 has two more modes:
 "outputs to host", the host-clock time of copying one launch's 11
@@ -50,12 +63,15 @@ fails a gate.  Needs a card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
+import importlib.util
 import json
 import statistics
 import sys
 import tempfile
 from pathlib import Path
+from unittest import mock
 
 import chip_mutants
 import chip_smoke
@@ -70,11 +86,105 @@ CASES = {"rmsnorm": [(4096, 2048, "bfloat16", "bfloat16", "main", 50),
          "find_alloc": [(2048, "grown", 20), (2048, "bursty", 20),
                         (256, "busy", 20), (8192, "queue", 10),
                         (chip_smoke.SIM_JOBS, "simulate", 0),
-                        (chip_smoke.EVENT_JOBS, "events", 0)]}
+                        (chip_smoke.EVENT_JOBS, "events", 0)],
+         "flash_attention_bwd": [chip_smoke.LLAMA_PREFILL + (True, 5)] + [
+             (4, Hq, Hkv, S, D, "bfloat16", True, w, True, 3)
+             for Hq, Hkv, D, S, w in chip_smoke.MODEL_ATTENTION.values()]}
 # kernel -> (a part of its CUDA kernels' names, [(model, layers)]): the
 # forwards it is timed in
 FORWARDS = {"rmsnorm": ("rmsnorm", [("llama3.2-1b", 4), ("rwkv6-7b", 2)]),
             "rwkv6_scan": ("wkv6", [("rwkv6-7b", 2)])}
+# kernel -> (parts of the names of its CUDA kernels in any build, [arch]):
+# the full-size kernel-path train steps whose backward it is timed in
+BACKWARDS = {"flash_attention_bwd": (
+    ("lse_delta_kernel", "dkdv_kernel", "dq_kernel", "q_pass", "kv_pass",
+     "kv_sum"), ["llama3.2-1b"])}
+
+
+def k1b_pass(name: str) -> int:
+    """Which of K1b's three passes a CUDA kernel of either form runs (the
+    split's sum counts with pass 1)."""
+    if "lse_delta_kernel" in name or ("q_pass" in name and "false" in name):
+        return 0
+    if "dq_kernel" in name or ("q_pass" in name and "true" in name):
+        return 2
+    return 1
+
+
+def k1b_wrapper(tree: Path, lib: Path):
+    """``flash_attention_bwd`` of ``tree``'s own binding module bound to
+    the library at ``lib``: another tree's C entry may take other
+    arguments (an older one has no split scratch), so its wrapper goes
+    with it."""
+    spec = importlib.util.spec_from_file_location(
+        f"k1b_{len(_K1B)}",
+        tree / "src/repro_torch/kernels/flash_attention_bwd.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look themselves up
+    spec.loader.exec_module(mod)
+    mod._fn = mod.bind(ctypes.CDLL(str(lib)))
+    return mod.flash_attention_bwd
+
+
+def use(kernel: str, lib: Path, tree: Path):
+    """A context in which the port launches ``kernel`` from the library
+    at ``lib`` built from ``tree``."""
+    if kernel != "flash_attention_bwd":
+        return chip_mutants.swapped(kernel, lib)
+    from repro_torch.kernels import flash_attention_bwd as fab
+    key = (str(tree), str(lib))
+    if key not in _K1B:
+        _K1B[key] = k1b_wrapper(tree, lib)
+    return mock.patch.object(fab, "flash_attention_bwd", _K1B[key])
+
+
+_K1B = {}  # (tree, library) -> its K1b wrapper
+
+
+def train_backward_call(arch: str, seed: int = 0):
+    """(one call of a full-size kernel-path train step's backward of
+    ``arch`` on 4 x 1024 tokens: the loss and ``autograd.grad`` of every
+    trainable parameter, remat's recompute included; its K1b calls)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.train.train_step import trainable
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    model = init_params(cfg, seed, device="cuda")
+    batch = chip_smoke._train_batch(cfg, 1024, seed)
+    ps = list(trainable(model).values())
+
+    def call():
+        loss, _ = loss_fn(model, cfg, batch)
+        torch.autograd.grad(loss, ps)
+    return call, chip_smoke.train_launches(cfg)["flash_attention_bwd"]
+
+
+def in_backward_ms(call, names, calls: int, reps: int = 2) -> tuple:
+    """From the profiler's trace of the card over ``reps`` calls of
+    ``call``: the mean device time (ms) of one K1b call (the summed time of
+    every kernel whose name holds one of ``names``, over ``calls`` a
+    call), the device time of all of a call's work, and the first's part
+    in each pass (``k1b_pass``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    k1b = [e for e in dev if any(n in e.name for n in names)]
+    if not k1b:
+        raise RuntimeError(f"the profiler traced no kernel named {names}")
+    per = 1e3 * reps * calls
+    passes = [sum(e.time_range.elapsed_us() for e in k1b
+                  if k1b_pass(e.name) == i) / per for i in range(3)]
+    return (sum(passes),
+            sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps, passes)
 
 
 def forward_call(arch: str, layers: int, seed: int = 0):
@@ -229,6 +339,31 @@ def _find_alloc_path(n: int, kind: str):
         chip_smoke.cycled(calls), total) * total]}, {}
 
 
+def _k1b_case(case, gen):
+    """K1b's check (``chip_smoke.k1b_check``) and its cold timer on the
+    inputs of ``case`` (``chip_smoke.k1b_inputs``), q, k, v and dO cycled
+    through copies past L2; SDPA's backward on the same inputs beside
+    it."""
+    import torch
+    from repro_torch.kernels import flash_attention_bwd as fab
+    q, k, v, do = chip_smoke.k1b_inputs(case, gen)
+    causal, window, iters = case[6], case[7], case[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, do))
+    sets = list(zip(*(chip_smoke.cold_copies(t, nbytes)
+                      for t in (q, k, v, do))))
+    calls = [lambda s=s: fab.flash_attention_bwd(*s, causal, window)
+             for s in sets]
+    with torch.enable_grad():
+        leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+        lib_out = chip_smoke.sdpa_call(*leaves, causal, window)()
+    return (lambda: chip_smoke.k1b_check(q, k, v, do, causal, window),
+            {"cold": lambda: [chip_smoke.device_ms(chip_smoke.cycled(calls),
+                                                   iters)]},
+            {"cold": lambda: [chip_smoke.device_ms(
+                lambda: torch.autograd.grad(lib_out, leaves, do,
+                                            retain_graph=True), iters)]})
+
+
 def _ptxas(log: str) -> list:
     return [line.strip() for line in log.splitlines()
             if "registers" in line or "spill" in line]
@@ -247,6 +382,8 @@ def _case(kernel: str, case, gen):
         return _commit_scan_case(case)
     if kernel == "find_alloc":
         return _find_alloc_case(case)
+    if kernel == "flash_attention_bwd":
+        return _k1b_case(case, gen)
     if kernel == "rwkv6_scan":
         args = chip_smoke.rwkv_inputs(case, gen)
         want, want_s = ref.rwkv6_scan_ref(*args)
@@ -276,10 +413,10 @@ def _case(kernel: str, case, gen):
     }
 
 
-def _timed(names: list, libs: dict, kernel: str, runs: dict,
+def _timed(trees: dict, libs: dict, kernel: str, runs: dict,
            lib_runs: dict, rounds: int) -> dict:
     """(build or "library", mode) -> every ms, the builds in turn."""
-    times = {(n, m): [] for n in names for m in runs}
+    times = {(n, m): [] for n in trees for m in runs}
     times.update({("library", m): [] for m in lib_runs})
     order = list(times)
     for rnd in range(rounds):
@@ -287,7 +424,7 @@ def _timed(names: list, libs: dict, kernel: str, runs: dict,
             if n == "library":
                 times[(n, m)] += lib_runs[m]()
                 continue
-            with chip_mutants.swapped(kernel, libs[f"{kernel}-{n}"]):
+            with use(kernel, libs[f"{kernel}-{n}"], trees[n]):
                 times[(n, m)] += runs[m]()
     return times
 
@@ -328,13 +465,15 @@ def main(argv=None) -> int:
             for case in CASES[kernel]:
                 check, runs, lib_runs = _case(kernel, case, gen)
                 checks = {}
-                for n in trees:
-                    with chip_mutants.swapped(kernel, libs[f"{kernel}-{n}"]):
+                for n, t in trees.items():
+                    with use(kernel, libs[f"{kernel}-{n}"], t):
                         checks[n] = check()
                     if not checks[n]["ok"]:
                         bad.append(f"{kernel}/{n}/{case[:5]}")
-                times = _timed(list(trees), libs, kernel, runs, lib_runs,
+                times = _timed(trees, libs, kernel, runs, lib_runs,
                                args.rounds)
+                del runs, lib_runs
+                torch.cuda.empty_cache()
                 rows[str(list(case[:5]))] = {
                     f"{n} {m}": {"ms": t, "median_ms": statistics.median(t),
                                  **checks.get(n, {})}
@@ -342,7 +481,7 @@ def main(argv=None) -> int:
             part, models = FORWARDS.get(kernel, (None, []))
             for arch, layers in models:
                 call = forward_call(arch, layers)
-                times = _timed(list(trees), libs, kernel, {
+                times = _timed(trees, libs, kernel, {
                     "forward": lambda: [statistics.mean(
                         in_forward_ms(call, part)[0])],
                     "forward all": lambda: [in_forward_ms(call, part)[1]],
@@ -352,11 +491,27 @@ def main(argv=None) -> int:
                     for (n, m), t in times.items()}
                 del call
                 torch.cuda.empty_cache()
+            names, archs = BACKWARDS.get(kernel, ((), []))
+            for arch in archs:
+                call, calls = train_backward_call(arch)
+                times = _timed(trees, libs, kernel, {
+                    "train step": lambda: [in_backward_ms(call, names,
+                                                          calls)[0]],
+                    "backward all": lambda: [in_backward_ms(call, names,
+                                                            calls)[1]],
+                    **{f"train step pass {i}": lambda i=i: [in_backward_ms(
+                        call, names, calls)[2][i]] for i in range(3)},
+                }, {}, args.rounds)
+                rows[f"{arch} train step backward, {calls} K1b calls"] = {
+                    f"{n} {m}": {"ms": t, "median_ms": statistics.median(t)}
+                    for (n, m), t in times.items()}
+                del call
+                torch.cuda.empty_cache()
             for key, row in rows.items():
-                print(f"[compare] {kernel} {key}: " + ", ".join(
-                    f"{n} {r['median_ms']:.5f} ({min(r['ms']):.5f}-"
-                    f"{max(r['ms']):.5f})" for n, r in row.items()),
-                    flush=True)
+                print(f"[compare] {report['card']} | {kernel} {key}: "
+                      + ", ".join(f"{n} {r['median_ms']:.5f} "
+                                  f"({min(r['ms']):.5f}-{max(r['ms']):.5f})"
+                                  for n, r in row.items()), flush=True)
             report["kernels"][kernel] = rows
     if args.out:
         out = Path(args.out)

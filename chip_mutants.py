@@ -24,7 +24,9 @@ cases through each build with the smoke's own checks:
   of each (``chip_smoke.EXTRA_K4``, ``chip_smoke.EXTRA_K5``);
 - the backward kernels (K1b ``flash_attention_bwd``, K2b
   ``rwkv6_scan_bwd``, K3b ``rmsnorm_bwd``): faults anywhere in the
-  source, run through every case of the smoke's phase backward and its
+  source (K1b's in both its forms, and in ``hopper.cuh``, which is
+  inlined into the copy), run through every case of the smoke's phase
+  backward and its
   checks (``chip_smoke.k1b_check``, ``k2b_check_case``, ``k3b_check``:
   each gradient against autograd of the plain version, determinism).
   Each case's inputs and plain gradients are made once and shared by the
@@ -245,6 +247,54 @@ K1B_MUTANTS = {
     "delta_unnormalised": (
         "delta[base + row] = su / sum;", "delta[base + row] = su;",
         "delta is sum_j exp(s - m) dP, not divided by the row's sum"),
+    # the bf16 (tensor-core) form, caught by the bf16 cases
+    "wg_no_delta": (
+        "ds[e] = p[e] * ((dp[4 * j + e] - pv[r]) - rd[r]);",
+        "ds[e] = p[e] * dp[4 * j + e];",
+        "pass 1's dS takes dP without subtracting delta (pivot and rest)"),
+    "wg_dq_no_delta": (
+        "s[4 * j + e] = p * ((dp[4 * j + e] - pv[r]) - rd[r]);",
+        "s[4 * j + e] = p * dp[4 * j + e];",
+        "pass 2's dS takes dP without subtracting delta (pivot and rest)"),
+    "wg_drop_head": (
+        "const int g0 = z * chunk, g1 = min(G, g0 + chunk);",
+        "const int g0 = z * chunk, g1 = min(G, g0 + chunk) - (G > 1);",
+        "each split of pass 1 drops its last q head from dk and dv"),
+    "wg_drop_split": (
+        "for (int z = 0; z < splits; ++z) {",
+        "for (int z = 0; z < splits - 1; ++z) {",
+        "the sum of a split pass 1 leaves out the last split's partials"),
+    "wg_causal_tile": (
+        "const int kt0 = lo / TK, kt1 = (hi + TK - 1) / TK;",
+        "const int kt0 = lo / TK, kt1 = (hi + TK - 1) / TK - causal;",
+        "under a causal mask passes 0 and 2 stop one key tile early"),
+    "wg_causal_q_lo": (
+        "const int qt0 = q_lo / ROWS, nq",
+        "const int qt0 = q_lo / ROWS + causal, nq",
+        "under a causal mask pass 1 starts one q tile late"),
+    "wg_no_transpose": (
+        '"}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\\n}\\n"',
+        '"}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\\n}\\n"',
+        "the m64n64 product with A from registers reads its MN-major B "
+        "(pass 2's K at D = 64) without the transpose bit"),
+    "wg_no_transpose_a": (
+        '"}, %32, %33, p, 1, 1, 1, 1;\\n}\\n"',
+        '"}, %32, %33, p, 1, 1, 0, 1;\\n}\\n"',
+        "pass 1's m64n64 products from shared memory (dV, dK at D = 64) "
+        "read P and dS without the transpose bit of their A operand"),
+    "wg_dk_unscaled": (
+        "store_rows<D>(dk, scale, ka, &tdk, kw0, hk, b, S, wg, tid);",
+        "store_rows<D>(dk, 1.f, ka, &tdk, kw0, hk, b, S, wg, tid);",
+        "an unsplit pass 1 stores dk without the softmax scale"),
+    "wg_u_no_rescale": (
+        "u[r] = alpha * fmaf(l[r], pv[r] - pv_new, u[r]);",
+        "u[r] = fmaf(l[r], pv[r] - pv_new, u[r]);",
+        "pass 0's sum of p (dP - pv) is not rescaled when the row max grows"),
+    "wg_no_repivot": (
+        "u[r] = alpha * fmaf(l[r], pv[r] - pv_new, u[r]);",
+        "u[r] = alpha * u[r];",
+        "pass 0's sum of p (dP - pv) keeps the old pivot when the row max "
+        "moves to another key"),
 }
 K2B_MUTANTS = {
     "dw_wrong_step": (
@@ -291,6 +341,9 @@ K3B_MUTANTS = {
         "const T* dyr = dy + row * dy_stride;", "const T* dyr = dy + row * x_stride;",
         "dy's rows are read with x's row stride"),
 }
+# kernel -> the shared header inlined into its source before faults are
+# planted, so that a fault may sit in the header (K1b's in hopper.cuh)
+INLINED = {"flash_attention_bwd": "hopper.cuh"}
 # kernel -> its faults and the part of its source they go in (after the
 # marker, or all of it)
 KERNELS = {"flash_attention": (FA_MUTANTS, "// bf16: wgmma on a TMA ring"),
@@ -481,6 +534,10 @@ def main(argv=None) -> int:
     sources, what = {}, {}
     for kernel, (mutants, mark) in kernels.items():
         src = (kbuild.CSRC / f"{kernel}.cu").read_text()
+        if kernel in INLINED:
+            head = INLINED[kernel]
+            src = src.replace(f'#include "{head}"\n',
+                              (kbuild.CSRC / head).read_text(), 1)
         sources[(kernel, "control")] = src
         what[(kernel, "control")] = "unchanged"
         for name, (old, new, desc) in mutants.items():

@@ -87,7 +87,10 @@ exits non-zero.
    in both dtypes and masks, the llama3.2-1b train shape in the model
    layout, every config's attention (``MODEL_ATTENTION``), ragged
    non-causal S=100, windows biting at S=2048 and 4096, D=128, float32
-   ragged S=1000; timed beside SDPA's backward (a yardstick only).  K2b:
+   ragged S=1000; each row names its form (``flash_attention_bwd.FORMS``:
+   "wgmma" for bf16, "f32" for float32) and pass 1's head split, after the
+   build's ptxas lines (registers, spills); timed beside SDPA's backward
+   (a yardstick only).  K2b:
    the K2 sweep, the rwkv6-7b train shape (its plain version on the first
    ``K2B_PLAIN_STEPS`` steps, and at the full length on
    ``K2B_LAYER_SLICE`` with du against its closed form), ragged S=1000,
@@ -1090,6 +1093,20 @@ def _plain_grads(fn, inputs, grad_out, retain=False):
     return grads, again
 
 
+def ptxas_lines(name: str) -> list:
+    """The register, shared-memory and spill lines of ``name``'s build,
+    each after the (mangled) name of its kernel, from the build log (none
+    if an earlier process built it)."""
+    from repro_torch.kernels import build
+    out, entry = [], None
+    for line in build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif entry and ("registers" in line or "spill" in line):
+            out.append(f"{entry}: {line.strip()}")
+    return out
+
+
 def k1b_bound(B, Hq, Hkv, S, D, causal, window, dtype):
     """Least time for K1b's function: its five products over the pairs
     the mask leaves (scale q k^T, dO v^T, dV, dQ, dK) at the type's peak,
@@ -1190,13 +1207,16 @@ def k1b_case(case, gen):
     del lib_out, plain
     bound_ms, bound_by, flops, nbytes = k1b_bound(B, Hq, Hkv, S, D, causal,
                                                   window, dtype)
+    plan = fab.plan(B, Hq, Hkv, S, D, q.dtype)
     row = {"kernel": "flash_attention_bwd", "shape": [B, Hq, Hkv, S, D],
            "dtype": dtype, "causal": causal, "window": window,
-           "model_layout": model_layout, **errs, "ms": ms,
+           "model_layout": model_layout, "form": plan.form,
+           "splits": plan.splits, **errs, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
            "bytes": nbytes}
     log(f"[backward] K1b B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {dtype:8s} "
+        f"form={plan.form} splits={plan.splits} "
         f"causal={int(causal)} window={window:5d} "
         f"dq/dk/dv err={errs['dq']['max_rel_err']:.3g}/"
         f"{errs['dk']['max_rel_err']:.3g}/{errs['dv']['max_rel_err']:.3g} "
@@ -1462,6 +1482,8 @@ def phase_backward(seed: int):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 11)
     t0 = time.perf_counter()
+    for line in ptxas_lines("flash_attention_bwd"):
+        log(f"[backward] K1b ptxas {line}")
     rows = [k1b_case(c, gen) for c in k1b_cases()]
     rows += [k2b_case(c, gen) for c in K2B_CASES]
     rows += [k3b_case(c, gen) for c in K3B_CASES]
@@ -4039,7 +4061,8 @@ def main(argv=None) -> int:
             "launches": launches[name],
             **{k: bwd_main[name][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")},
+                "library_ms") + (("form",) if "form" in bwd_main[name]
+                                  else ())},
             "launches_per_train_step": {
                 r["arch"]: r["launches"][name] for r in (train, train_rwkv)},
             "launches_per_family_step": {
