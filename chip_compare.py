@@ -7,6 +7,7 @@ card.
     python3 chip_compare.py --tree base=DIR --kernels commit_scan
     python3 chip_compare.py --tree base=DIR --kernels find_alloc
     python3 chip_compare.py --tree base=DIR --kernels flash_attention_bwd
+    python3 chip_compare.py --tree base=DIR --kernels rmsnorm_bwd,rwkv6_scan_bwd
 
 Builds each named kernel (``src/repro_torch/kernels/csrc/<k>.cu``) from
 this checkout ("this") and from each ``--tree`` (another checkout: the
@@ -38,16 +39,23 @@ backwards, ``--rounds`` times:
   the device time of all the forward's work, which also sees what the
   kernel leaves in L2 for the next one.
 
-K1b (``flash_attention_bwd``): each build runs through its own tree's
-binding module (``k1b_wrapper``: a tree's C entry may take other
-arguments), checked by ``chip_smoke.k1b_check`` (dq, dk, dv gated, twice
-and bitwise) and timed at the llama3.2-1b train shape (model layout) and
-at every ``chip_smoke.MODEL_ATTENTION`` shape: "cold", on the card alone
-(``device_ms``) with q, k, v and dO cycled through copies past L2, SDPA's
-backward beside it (a yardstick only); and "train step", the mean device
-time of one K1b call (its passes' kernels summed) over the 16 of a full
-llama3.2-1b kernel-path train step's backward (``torch.profiler``), its
-part in each of K1b's three passes ("train step pass 0-2"), and "backward
+The backward kernels (K1b ``flash_attention_bwd``, K2b ``rwkv6_scan_bwd``,
+K3b ``rmsnorm_bwd``): each build runs through its own tree's binding
+module (``tree_wrapper``: a tree's C entry may take other arguments).  K1b
+is checked by ``chip_smoke.k1b_check`` (dq, dk, dv gated, twice and
+bitwise) and timed at the llama3.2-1b train shape (model layout) and at
+every ``chip_smoke.MODEL_ATTENTION`` shape; K2b by
+``chip_smoke.k2b_check_case`` at the rwkv6-7b train shape (B=4 H=64
+S=1024 D=64 bf16, model layout); K3b by ``chip_smoke.k3b_check`` at
+4096 x 2048 and 4096 x 4096 bf16.  "cold": on the card alone
+(``device_ms``), K1b's q, k, v, dO and K3b's x and dy cycled through
+copies past L2 (K2b's inputs are 7x the L2), beside one PyTorch call for
+the same gradient where there is one (SDPA's backward, ``F.rms_norm``'s
+backward; a yardstick only).  "train step": the mean device time of one
+call (its CUDA kernels summed) over a kernel-path train step's backward
+on 4 x 1024 tokens (``torch.profiler``): llama3.2-1b at full depth for
+K1b and K3b, rwkv6-7b at the smoke's 8 layers for K2b; for K1b also its
+part in each of its three passes ("train step pass 0-2"); "backward
 all", the device time of that whole backward.
 
 For K3, ``F.rms_norm`` takes its cold and warm turns beside the builds (a
@@ -89,16 +97,24 @@ CASES = {"rmsnorm": [(4096, 2048, "bfloat16", "bfloat16", "main", 50),
                         (chip_smoke.EVENT_JOBS, "events", 0)],
          "flash_attention_bwd": [chip_smoke.LLAMA_PREFILL + (True, 5)] + [
              (4, Hq, Hkv, S, D, "bfloat16", True, w, True, 3)
-             for Hq, Hkv, D, S, w in chip_smoke.MODEL_ATTENTION.values()]}
+             for Hq, Hkv, D, S, w in chip_smoke.MODEL_ATTENTION.values()],
+         "rwkv6_scan_bwd": [chip_smoke.RWKV_MAIN + ("bfloat16", "main", 5)],
+         "rmsnorm_bwd": [(4096, 2048, "bfloat16", "bfloat16", "main", 50),
+                         (4096, 4096, "bfloat16", "bfloat16", "rwkv", 50)]}
 # kernel -> (a part of its CUDA kernels' names, [(model, layers)]): the
 # forwards it is timed in
 FORWARDS = {"rmsnorm": ("rmsnorm", [("llama3.2-1b", 4), ("rwkv6-7b", 2)]),
             "rwkv6_scan": ("wkv6", [("rwkv6-7b", 2)])}
-# kernel -> (parts of the names of its CUDA kernels in any build, [arch]):
-# the full-size kernel-path train steps whose backward it is timed in
+# kernel -> (parts of the names of its CUDA kernels in any build, [(arch,
+# layers)]): the kernel-path train steps whose backward it is timed in
+# (None: full depth; rwkv6-7b at the smoke's training depth)
 BACKWARDS = {"flash_attention_bwd": (
     ("lse_delta_kernel", "dkdv_kernel", "dq_kernel", "q_pass", "kv_pass",
-     "kv_sum"), ["llama3.2-1b"])}
+     "kv_sum"), [("llama3.2-1b", None)]),
+    "rwkv6_scan_bwd": (("wkv6_bwd_kernel", "wkv6_ckpt_kernel", "du_kernel"),
+                       [("rwkv6-7b", chip_smoke.TRAIN["rwkv6-7b"]["layers"])]),
+    "rmsnorm_bwd": (("rmsnorm_bwd", "dscale_kernel"),
+                    [("llama3.2-1b", None)])}
 
 
 def k1b_pass(name: str) -> int:
@@ -111,45 +127,48 @@ def k1b_pass(name: str) -> int:
     return 1
 
 
-def k1b_wrapper(tree: Path, lib: Path):
-    """``flash_attention_bwd`` of ``tree``'s own binding module bound to
-    the library at ``lib``: another tree's C entry may take other
-    arguments (an older one has no split scratch), so its wrapper goes
-    with it."""
+def tree_wrapper(kernel: str, tree: Path, lib: Path):
+    """The function ``kernel`` of ``tree``'s own binding module
+    (``flash_attention_bwd``, ``rwkv6_scan_bwd`` or ``rmsnorm_bwd``) bound
+    to the library at ``lib``: another tree's C entry may take other
+    arguments, so its wrapper goes with it."""
     spec = importlib.util.spec_from_file_location(
-        f"k1b_{len(_K1B)}",
-        tree / "src/repro_torch/kernels/flash_attention_bwd.py")
+        f"{kernel}_{len(_WRAPPERS)}",
+        tree / f"src/repro_torch/kernels/{kernel}.py")
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod  # its dataclasses look themselves up
     spec.loader.exec_module(mod)
     mod._fn = mod.bind(ctypes.CDLL(str(lib)))
-    return mod.flash_attention_bwd
+    return getattr(mod, kernel)
 
 
 def use(kernel: str, lib: Path, tree: Path):
     """A context in which the port launches ``kernel`` from the library
     at ``lib`` built from ``tree``."""
-    if kernel != "flash_attention_bwd":
+    if kernel not in BACKWARDS:
         return chip_mutants.swapped(kernel, lib)
-    from repro_torch.kernels import flash_attention_bwd as fab
-    key = (str(tree), str(lib))
-    if key not in _K1B:
-        _K1B[key] = k1b_wrapper(tree, lib)
-    return mock.patch.object(fab, "flash_attention_bwd", _K1B[key])
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    key = (kernel, str(tree), str(lib))
+    if key not in _WRAPPERS:
+        _WRAPPERS[key] = tree_wrapper(kernel, tree, lib)
+    return mock.patch.object(mod, kernel, _WRAPPERS[key])
 
 
-_K1B = {}  # (tree, library) -> its K1b wrapper
+_WRAPPERS = {}  # (kernel, tree, library) -> its wrapper
 
 
-def train_backward_call(arch: str, seed: int = 0):
-    """(one call of a full-size kernel-path train step's backward of
-    ``arch`` on 4 x 1024 tokens: the loss and ``autograd.grad`` of every
-    trainable parameter, remat's recompute included; its K1b calls)."""
+def train_backward_call(arch: str, layers, kernel: str, seed: int = 0):
+    """(one call of a kernel-path train step's backward of ``arch`` at
+    full width and ``layers`` layers (None: full depth) on 4 x 1024
+    tokens: the loss and ``autograd.grad`` of every trainable parameter,
+    remat's recompute included; its calls of ``kernel``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params, loss_fn
     from repro_torch.train.train_step import trainable
     cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = init_params(cfg, seed, device="cuda")
     batch = chip_smoke._train_batch(cfg, 1024, seed)
     ps = list(trainable(model).values())
@@ -157,15 +176,15 @@ def train_backward_call(arch: str, seed: int = 0):
     def call():
         loss, _ = loss_fn(model, cfg, batch)
         torch.autograd.grad(loss, ps)
-    return call, chip_smoke.train_launches(cfg)["flash_attention_bwd"]
+    return call, chip_smoke.train_launches(cfg)[kernel]
 
 
 def in_backward_ms(call, names, calls: int, reps: int = 2) -> tuple:
     """From the profiler's trace of the card over ``reps`` calls of
-    ``call``: the mean device time (ms) of one K1b call (the summed time of
-    every kernel whose name holds one of ``names``, over ``calls`` a
-    call), the device time of all of a call's work, and the first's part
-    in each pass (``k1b_pass``)."""
+    ``call``: the mean device time (ms) of one call of a backward kernel
+    (the summed time of every CUDA kernel whose name holds one of
+    ``names``, over ``calls`` a call), the device time of all of a call's
+    work, and the first's part in each of K1b's passes (``k1b_pass``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     call()
@@ -364,6 +383,53 @@ def _k1b_case(case, gen):
                                             retain_graph=True), iters)]})
 
 
+def _k2b_case(case):
+    """K2b's check (``chip_smoke.k2b_check_case``, the smoke's "main"
+    case) and its cold timer on the inputs of ``case``
+    (``chip_smoke.k2b_inputs``): r, k, v, w and dO move 7x the L2's bytes
+    a call, so back-to-back calls read them from device memory."""
+    import torch
+    from repro_torch.kernels import rwkv6_scan_bwd as rkb
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    args = chip_smoke.k2b_inputs(case, gen)
+
+    def check():
+        errs, _ = chip_smoke.k2b_check_case(case[5], args)
+        return errs
+    return check, {"cold": lambda: [chip_smoke.device_ms(
+        lambda: rkb.rwkv6_scan_bwd(*args), case[-1])]}, {}
+
+
+def _k3b_case(case, gen):
+    """K3b's check (``chip_smoke.k3b_check``) and its cold timer on the
+    inputs of ``case`` (``chip_smoke.k3b_inputs``), x and dy cycled
+    through copies past L2; ``F.rms_norm``'s backward on the same copies
+    beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm_bwd as rmb
+    x, scale, dy = chip_smoke.k3b_inputs(case, gen)
+    rows, D, iters = case[0], case[1], case[-1]
+    nbytes = 3 * rows * D * x.element_size()
+    pairs = list(zip(chip_smoke.cold_copies(x, nbytes),
+                     chip_smoke.cold_copies(dy, nbytes)))
+    calls = [lambda a=a, b=b: rmb.rmsnorm_bwd(a, scale, b) for a, b in pairs]
+    lib = []
+    with torch.enable_grad():
+        for a, b in pairs:
+            leaves = [a.detach().requires_grad_(),
+                      scale.detach().requires_grad_()]
+            out = F.rms_norm(leaves[0], (D,), leaves[1], 1e-5)
+            lib.append(lambda o=out, l=leaves, b=b: torch.autograd.grad(
+                o, l, b, retain_graph=True))
+    return (lambda: chip_smoke.k3b_check(x, scale, dy),
+            {"cold": lambda: [chip_smoke.device_ms(chip_smoke.cycled(calls),
+                                                   iters)]},
+            {"cold": lambda: [chip_smoke.device_ms(chip_smoke.cycled(lib),
+                                                   iters)]})
+
+
 def _ptxas(log: str) -> list:
     return [line.strip() for line in log.splitlines()
             if "registers" in line or "spill" in line]
@@ -384,6 +450,10 @@ def _case(kernel: str, case, gen):
         return _find_alloc_case(case)
     if kernel == "flash_attention_bwd":
         return _k1b_case(case, gen)
+    if kernel == "rwkv6_scan_bwd":
+        return _k2b_case(case)
+    if kernel == "rmsnorm_bwd":
+        return _k3b_case(case, gen)
     if kernel == "rwkv6_scan":
         args = chip_smoke.rwkv_inputs(case, gen)
         want, want_s = ref.rwkv6_scan_ref(*args)
@@ -492,17 +562,21 @@ def main(argv=None) -> int:
                 del call
                 torch.cuda.empty_cache()
             names, archs = BACKWARDS.get(kernel, ((), []))
-            for arch in archs:
-                call, calls = train_backward_call(arch)
-                times = _timed(trees, libs, kernel, {
+            for arch, layers in archs:
+                call, calls = train_backward_call(arch, layers, kernel)
+                modes = {
                     "train step": lambda: [in_backward_ms(call, names,
                                                           calls)[0]],
                     "backward all": lambda: [in_backward_ms(call, names,
-                                                            calls)[1]],
-                    **{f"train step pass {i}": lambda i=i: [in_backward_ms(
-                        call, names, calls)[2][i]] for i in range(3)},
-                }, {}, args.rounds)
-                rows[f"{arch} train step backward, {calls} K1b calls"] = {
+                                                            calls)[1]]}
+                if kernel == "flash_attention_bwd":
+                    modes.update({f"train step pass {i}": lambda i=i: [
+                        in_backward_ms(call, names, calls)[2][i]]
+                        for i in range(3)})
+                times = _timed(trees, libs, kernel, modes, {}, args.rounds)
+                depth = "" if layers is None else f" ({layers} layers)"
+                rows[f"{arch}{depth} train step backward, {calls} "
+                     f"{kernel} calls"] = {
                     f"{n} {m}": {"ms": t, "median_ms": statistics.median(t)}
                     for (n, m), t in times.items()}
                 del call

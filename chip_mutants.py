@@ -297,49 +297,76 @@ K1B_MUTANTS = {
         "moves to another key"),
 }
 K2B_MUTANTS = {
-    "dw_wrong_step": (
-        "const float sp = scr[(c * JC + cc) * NT + tid];",
-        "const float sp = scr[((c + 1 < n ? c + 1 : c) * JC + cc) * NT + tid];",
-        "dw and dr read S_t in place of S_{t-1}"),
+    "dw_state_one_early": (
+        "walk_step(c, win[c - HW]);", "walk_step(c, win[c > HW ? c - HW - 1 : 0]);",
+        "the walk of the last 8 steps of a chunk reads the state one step "
+        "early (the chunk-state window's index is off by one)"),
+    "first_window_shifted": (
+        "if (F || c < n) walk_step(c, win[c]);",
+        "if (F || c < n) walk_step(c, win[c > 0 ? c - 1 : 0]);",
+        "the walk of the first 8 steps reads the state one step early"),
     "dk_no_bonus": (
-        "from_f32<T>(fmaf(ri * ui, d, sk))", "from_f32<T>(sk)",
-        "dk drops the u-bonus term"),
+        "fmaf(r2.x * u2.x, dov[c], sk.x),\n          fmaf(r2.y * u2.y, dov[c], sk.y)",
+        "sk.x, sk.y", "dk drops the u-bonus term"),
+    "dr_no_bonus": (
+        "fmaf(u2.x * k2.x, dov[c], sr.x),\n          fmaf(u2.y * k2.y, dov[c], sr.y)",
+        "sr.x, sr.y", "dr drops the u-bonus term"),
     "adjoint_no_decay": (
-        "adj[cc] = fmaf(wi, adj[cc], ri * do_s[c * D + j0 + cc]);",
-        "adj[cc] = adj[cc] + ri * do_s[c * D + j0 + cc];",
+        "adj[kk][m] = fmaf(ww[kk], adj[kk][m], rr[kk] * dd[m]);",
+        "adj[kk][m] = adj[kk][m] + rr[kk] * dd[m];",
         "the adjoint is carried back without the decay"),
     "s0_ignored": (
-        "st[cc] = s0[(bh * D + i) * D + j0 + cc];", "st[cc] = 0.f;",
+        "const float4 s = ld4(s0 + (bh * D + i0 + 2 * kg + kk) * D + col);",
+        "const float4 s = make_float4(0.f, 0.f, 0.f, 0.f);",
         "the replay starts from zero, not S_0"),
+    "stale_checkpoint": (
+        "ckpt + ((bh * nch + ch) * CL + rank) * (KB * D), 0, 1,",
+        "ckpt + ((bh * nch + (ch > 0 ? ch - 1 : 0)) * CL + rank) * (KB * D), 0, 1,",
+        "a chunk re-derives its states from the previous chunk's checkpoint"),
+    "cluster_rank_dropped": (
+        "for (int p = 0; p < CL; ++p) {\n          const float2 a = ld2(cluster",
+        "for (int p = 0; p < CL - (CL > 1); ++p) {\n          const float2 a = ld2(cluster",
+        "dv's sum over the cluster's blocks leaves out the last rank"),
+    "warp_partial_dropped": (
+        "for (int q = 0; q < NW; ++q) {\n        const float2 a = ld2(jp",
+        "for (int q = 0; q < NW - (NW > 1); ++q) {\n        const float2 a = ld2(jp",
+        "dk, dw and dr leave out the last warp's 16 value columns"),
     "du_last_batch": (
         "for (int b = 0; b < B; ++b) s +=", "for (int b = B - 1; b < B; ++b) s +=",
         "du sums only the last batch row"),
-    "dv_row_short": (
-        "for (int ii = 0; ii < D; ++ii)", "for (int ii = 0; ii < D - 1; ++ii)",
-        "dv misses the last key row"),
-    "stale_checkpoint": (
-        "st[cc] = ck[(static_cast<long long>(ch) * JC + cc) * NT + tid];",
-        "st[cc] = ck[(static_cast<long long>(ch > 0 ? ch - 1 : 0) * JC + cc)"
-        " * NT + tid];",
-        "a chunk re-derives its states from the previous chunk's checkpoint"),
 }
 K3B_MUTANTS = {
     "dscale_missing_block": (
-        "for (int b = 0; b < nblocks; ++b)", "for (int b = 0; b < nblocks - 1; ++b)",
+        "const int b0 = sy * per, b1 = min(b0 + per, nblocks);",
+        "const int b0 = sy * per, b1 = min(b0 + per, nblocks - 1);",
         "dscale misses the last row block's partial"),
     "dx_no_mean_term": (
-        "dxr[i] = from_f32<T>(r * g - xf * c);", "dxr[i] = from_f32<T>(r * g);",
-        "dx drops the x r^3 mean(g x) term"),
+        "o.v[e] = from_f32<T>(r * (dyf * to_f32(sc[i].v[e])) - xf * c);",
+        "o.v[e] = from_f32<T>(r * (dyf * to_f32(sc[i].v[e])));",
+        "the register form's dx drops the x r^3 mean(g x) term"),
     "dscale_no_r": (
-        "acc[i] = fmaf(dyf * xf, r, acc[i]);", "acc[i] += dyf * xf;",
-        "dscale misses the 1/rms factor"),
+        "ds[i][e] = fmaf(dyf * xf, r, ds[i][e]);", "ds[i][e] += dyf * xf;",
+        "the register form's dscale misses the 1/rms factor"),
     "no_eps": (
-        "const float r = 1.f / sqrtf(ss * inv_d + eps);",
-        "const float r = 1.f / sqrtf(ss * inv_d);",
-        "eps is dropped from the mean square"),
-    "dy_with_x_stride": (
-        "const T* dyr = dy + row * dy_stride;", "const T* dyr = dy + row * x_stride;",
-        "dy's rows are read with x's row stride"),
+        "block_sum2(ss, gx, red[row & 1]);\n    const float r = 1.f / sqrtf(ss * inv_d + eps);",
+        "block_sum2(ss, gx, red[row & 1]);\n    const float r = 1.f / sqrtf(ss * inv_d);",
+        "the register form drops eps from the mean square"),
+    "dy_next_with_x_stride": (
+        "reinterpret_cast<const Vec<T>*>(dy + (r0 + row + 1) * dy_stride);",
+        "reinterpret_cast<const Vec<T>*>(dy + (r0 + row + 1) * x_stride);",
+        "the register form reads every dy row after a block's first with "
+        "x's row stride"),
+    "prefetch_unused": (
+        "cx[i] = nx[i];", "cx[i] = cx[i];",
+        "the prefetched row of x is never taken up: every row of a block "
+        "is normed with the block's first x"),
+    "tail_row_dropped": (
+        "const int n = static_cast<int>(min(rpb, rows - r0));",
+        "const int n = static_cast<int>(min(rpb, rows - r0 - (rows - r0 < rpb)));",
+        "a last block with fewer rows than the plan's drops its last row"),
+    "general_no_mean_term": (
+        "dxr[i] = from_f32<T>(r * g - xf * c);", "dxr[i] = from_f32<T>(r * g);",
+        "the general form's dx drops the x r^3 mean(g x) term"),
 }
 # kernel -> the shared header inlined into its source before faults are
 # planted, so that a fault may sit in the header (K1b's in hopper.cuh)

@@ -94,10 +94,13 @@ exits non-zero.
    the K2 sweep, the rwkv6-7b train shape (its plain version on the first
    ``K2B_PLAIN_STEPS`` steps, and at the full length on
    ``K2B_LAYER_SLICE`` with du against its closed form), ragged S=1000,
-   D=16 and 128, S=17, decays of exactly 0.  K3b: the llama and rwkv6
+   D=16 and 128, S=17, decays of exactly 0; each row names its form and
+   cluster size (``rwkv6_scan_bwd.plan``).  K3b: the llama and rwkv6
    norms in bf16 and float32, ragged, strided x and dy, a ragged row
-   count, an f32 scale with bf16 x, rows where eps matters; timed beside
-   ``F.rms_norm``'s backward.  No PyTorch call computes WKV6's backward.
+   count, an f32 scale with bf16 x, rows where eps matters; each row
+   names its form ("regs" or "general") and rows a block
+   (``rmsnorm_bwd.plan_of``); timed beside ``F.rms_norm``'s backward.
+   The ptxas lines of all three builds come first.  No PyTorch call computes WKV6's backward.
 2. prefill -- llama3.2-1b ``forward`` on 4 x 1024 tokens in bf16,
    through the kernels (``attn_impl="pallas"``) and through the einsum
    path (``"xla"``), each timed as the median of ``FORWARD_REPS`` calls.
@@ -1341,6 +1344,7 @@ def k2b_case(case, gen):
     args = k2b_inputs(case, gen)
     r, _, _, w, u, _, _ = args
     errs, plain_args = k2b_check_case(kind, args)
+    plan = rkb.plan(B, H, S, D)
     cut = kind == "main"
     if not errs["ok"]:
         raise RuntimeError(f"rwkv6_scan_bwd at {case[:6]}: "
@@ -1353,11 +1357,13 @@ def k2b_case(case, gen):
     del plain
     bound_ms, bound_by, flops, nbytes = k2b_bound(r, w, u)
     row = {"kernel": "rwkv6_scan_bwd", "shape": [B, H, S, D], "dtype": dtype,
-           "kind": kind, **errs, "ms": ms, "plain_ms": plain_ms,
+           "kind": kind, "form": plan.form, "cluster": plan.cluster, **errs,
+           "ms": ms, "plain_ms": plain_ms,
            "plain_steps": K2B_PLAIN_STEPS if cut else S, "library_ms": None,
            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
            "bytes": nbytes}
     log(f"[backward] K2b B={B} H={H} S={S} D={D} {dtype:8s} {kind:6s} "
+        f"form={plan.form} cluster={plan.cluster} "
         + " ".join(f"{g}={errs[g]['max_rel_err']:.3g}"
                    for g in ("dr", "dk", "dv", "dw", "du"))
         + f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -1441,6 +1447,7 @@ def k3b_case(case, gen):
     errs = k3b_check(x, scale, dy)
     if not errs["ok"]:
         raise RuntimeError(f"rmsnorm_bwd at {case[:5]}: {json.dumps(errs)}")
+    plan = rmb.plan_of(x, scale, dy)
     nbytes = 3 * rows * D * x.element_size() + 2 * D * scale.element_size()
     pairs = list(zip(cold_copies(x, nbytes), cold_copies(dy, nbytes)))
     ms = device_ms(cycled([lambda a=a, b=b: rmb.rmsnorm_bwd(a, scale, b)
@@ -1462,13 +1469,14 @@ def k3b_case(case, gen):
     flops = 10 * rows * D
     t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
     row = {"kernel": "rmsnorm_bwd", "shape": [rows, D], "dtype": dtype,
-           "scale_dtype": sdtype, "kind": kind, **errs, "ms": ms,
+           "scale_dtype": sdtype, "kind": kind, "form": plan.form,
+           "rows_per_block": plan.rows_per_block, **errs, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "bytes": nbytes, "flops": flops}
     log(f"[backward] K3b {rows}x{D} {dtype:8s} scale {sdtype:8s} {kind:8s} "
-        f"dx_err={errs['dx']['max_rel_err']:.3g} "
+        f"form={plan.form} rows/block={plan.rows_per_block} dx_err={errs['dx']['max_rel_err']:.3g} "
         f"dscale_err={errs['dscale']['max_rel_err']:.3g} kernel_ms={ms:.5f}"
         f" plain_ms={plain_ms:.4f} library_ms={library_ms} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
@@ -1482,8 +1490,10 @@ def phase_backward(seed: int):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 11)
     t0 = time.perf_counter()
-    for line in ptxas_lines("flash_attention_bwd"):
-        log(f"[backward] K1b ptxas {line}")
+    for name, tag in (("flash_attention_bwd", "K1b"),
+                      ("rwkv6_scan_bwd", "K2b"), ("rmsnorm_bwd", "K3b")):
+        for line in ptxas_lines(name):
+            log(f"[backward] {tag} ptxas {line}")
     rows = [k1b_case(c, gen) for c in k1b_cases()]
     rows += [k2b_case(c, gen) for c in K2B_CASES]
     rows += [k3b_case(c, gen) for c in K3B_CASES]

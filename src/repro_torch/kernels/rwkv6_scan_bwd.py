@@ -3,14 +3,15 @@ autograd ``Function`` of K2 that ``ops.rwkv6_scan`` calls.
 
 ``csrc/rwkv6_scan_bwd.cu`` computes the gradient that the JAX package
 takes by autodiff through its plain scan; its header says how.
-``rwkv6_scan_bwd`` checks the arguments, allocates dr, dk, dv, dw and du
-and the kernel's float32 scratch (the state checkpoints every 16 steps,
-a chunk's states, du's per-(batch, head) sums), launches the kernel on
-PyTorch's current stream and counts the launches in ``LAUNCHES``.  The
-inputs are read in place through their strides (head dim contiguous; a
-d_out of another layout is copied to contiguous first); w and u are
-handed to the kernel in float32 (a copy only where they are not), and dw
-and du come back in their dtypes.
+``rwkv6_scan_bwd`` checks the arguments, plans the launch (``plan``),
+allocates dr, dk, dv, dw and du and the kernel's float32 scratch (the
+state checkpoints every 16 steps, du's per-(batch, head) sums), launches
+the kernel on PyTorch's current stream and counts the launches in
+``LAUNCHES``.  The inputs are read in place through their strides (head
+dim contiguous, rows 16-byte aligned; an input of another layout is
+copied to contiguous first); w and u are handed to the kernel in float32
+(a copy only where they are not), and dw and du come back in their
+dtypes.
 
 ``RWKV6Scan`` dispatches on the device: on a CUDA tensor its forward
 launches K2 and its backward K2b; on the CPU its forward is the plain
@@ -23,6 +24,7 @@ grad, and the backward raises if the new state's gradient is asked for
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -31,14 +33,50 @@ from repro_torch.kernels import rwkv6_scan as _fwd
 
 LAUNCHES = 0  # one per kernel launch, and nowhere else
 
-CHUNK = 16  # steps between the kernel's state checkpoints
+CHUNK = 16  # steps between the kernel's state checkpoints, and a chunk
+KEYS = 16  # keys a block
 _fn = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How K2b runs one call: its form, the keys a block owns (with all
+    value columns), the blocks of one (batch, head) (a thread-block
+    cluster), the threads a block, the steps a chunk and the checkpoints
+    a (batch, head)."""
+    form: str
+    keys: int
+    cluster: int
+    threads: int
+    chunk: int
+    checkpoints: int
+
+
+def plan(B: int, H: int, S: int, D: int) -> Plan:
+    """K2b's launch, a pure function of the shape: the "cluster" form, a
+    block per 16 keys of a (batch, head), the D / 16 blocks of a (batch,
+    head) in one cluster (at most 8, the portable cluster size, at
+    D = 128), a thread per 2 keys and 4 columns (2 D threads), chunks of
+    16 steps and a checkpoint before each."""
+    if D not in _fwd._HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one of {_fwd._HEAD_DIMS}")
+    return Plan("cluster", KEYS, D // KEYS, 2 * D, CHUNK, -(-S // CHUNK))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a contiguous copy of it where its rows (last dim) do not
+    start on 16-byte boundaries."""
+    e = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * e % 16 == 0
+                                      for s in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def bind(lib: ctypes.CDLL):
     """The C entry ``rwkv6_scan_bwd`` of a built library, typed."""
     fn = lib.rwkv6_scan_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 27 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -69,8 +107,12 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d_out.stride(-1) != 1:
         d_out = d_out.contiguous()
     B, H, S, D = r.shape
+    p = plan(B, H, S, D)
     dev = r.device
     wf = w.float() if w.dtype != torch.float32 else w
+    r, k, v, wf, d_out = (_aligned(t) for t in (r, k, v, wf, d_out))
+    if state.data_ptr() % 16:
+        state = state.clone()
     uf = u.float().contiguous()
 
     def grad_like(dtype):
@@ -81,10 +123,8 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dw = grad_like(torch.float32)
     du = torch.empty((H, D), dtype=torch.float32, device=dev)
     du_part = torch.empty((B, H, D), dtype=torch.float32, device=dev)
-    nch = -(-S // CHUNK)
-    ckpt = torch.empty((B, H, nch, D, D), dtype=torch.float32, device=dev)
-    scratch = torch.empty((B, H, CHUNK, D, D), dtype=torch.float32,
-                          device=dev)
+    ckpt = torch.empty((B, H, p.checkpoints, D, D), dtype=torch.float32,
+                       device=dev)
     strides = [s for t in (r, k, v, wf, d_out, dr, dk, dv, dw)
                for s in t.stride()[:3]]
     with torch.cuda.device(dev):
@@ -93,8 +133,9 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         wf.data_ptr(), d_out.data_ptr(), uf.data_ptr(),
                         state.data_ptr(), dr.data_ptr(), dk.data_ptr(),
                         dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
-                        du.data_ptr(), ckpt.data_ptr(), scratch.data_ptr(),
-                        _fwd._DTYPES[r.dtype], B, H, S, D, *strides, stream)
+                        du.data_ptr(), ckpt.data_ptr(),
+                        _fwd._DTYPES[r.dtype], B, H, S, D, p.cluster,
+                        *strides, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: cudaError "
                            f"{err}")
