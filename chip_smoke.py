@@ -271,6 +271,17 @@ exits non-zero.
    on the card through the kernels for hadare, hadar and gavel:
    HadarE's CRU 1.0, every eval loss finite and below its job's initial
    one, HadarE's rounds at or below Hadar's (``tests/test_system.py``).
+27. mesh -- last, so that its process group cannot disturb the others:
+   (a) HadarE's ``pod_consolidate`` of two full-width llama3.2-1b bf16
+   copies (seeds 0 and 1, steps 3 and 5) on DTensors over a one-rank
+   NCCL ``(1, 1, 1)`` ("pod", "data", "model") mesh (a ``FileStore`` in a
+   temporary directory), bitwise equal to the plain call,
+   both timed by CUDA events; (b) ``repro_torch.launch.dryrun``
+   in subprocesses: llama3.2-1b ``train_4k`` on the fake 16x16 mesh and
+   its consolidation on 2x16x16, each record ``ok``, its argument bytes
+   those of the port's placements, its FLOPs a device's (above 0, below
+   the unsharded trace's), the consolidation's collectives all-reduces of
+   2 x 4 x the local elements.  No kernel runs in it.
 
 Full-depth agreement of the two model paths is printed, not gated: the
 random init makes a deep stack chaotic.  It prints a ``{"kernels":
@@ -3969,6 +3980,182 @@ def phase_train_scheduled(seed: int) -> dict:
     return out
 
 
+# Phase mesh: the consolidation on a one-rank NCCL mesh, and the dry run.
+MESH_ARCH = "llama3.2-1b"
+MESH_STEPS = (3.0, 5.0)
+DRYRUN_TIMEOUT = 300
+
+
+def mesh_consolidate(cfg) -> dict:
+    """``pod_consolidate`` of two copies of ``cfg`` (seeds 0 and 1) on
+    DTensors in ``pod_consolidate_shardings``' placements over a one-rank
+    ``(1, 1, 1)`` ("pod", "data", "model") mesh, against the same call on
+    the plain tensors on the card: every leaf bitwise equal.  Opens a
+    one-rank NCCL group on a ``FileStore`` in a temporary directory and
+    destroys it.  Reports the ms of both calls (CUDA events) and the
+    collectives ``CommDebugMode`` saw (none: DTensor skips a reduction
+    over a mesh dim of one rank)."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.specs import param_shardings
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.model import init_params
+    from repro_torch.train.consolidate import (pod_consolidate,
+                                               pod_consolidate_shardings)
+    copies = [dict(init_params(cfg, seed=s, device="cuda")
+                   .named_parameters()) for s in (0, 1)]
+    stacked = {n: torch.stack([c[n].detach() for c in copies])
+               for n in copies[0]}
+    del copies
+    steps = torch.tensor(MESH_STEPS, dtype=torch.float32, device="cuda")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    plain, plain_ms = timed(lambda: pod_consolidate(stacked, steps))
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            mesh = M.make_host_mesh(1, 1, 1, device="cuda", pod_axis=True)
+            ins, _ = pod_consolidate_shardings(param_shardings(
+                init_params(cfg, device="meta"), mesh))
+            dstacked = {n: DTensor.from_local(
+                t, mesh, shd.to_placements(ins[n], mesh))
+                for n, t in stacked.items()}
+            cd = CommDebugMode()
+            with cd:
+                out, ms = timed(lambda: pod_consolidate(dstacked, steps))
+            comms = {str(k): v for k, v in cd.get_comm_counts().items()}
+            bad = [n for n in plain
+                   if not torch.equal(out[n].to_local(), plain[n])]
+        finally:
+            dist.destroy_process_group()
+    if bad:
+        raise AssertionError(f"mesh pod_consolidate differs from the plain "
+                             f"one on {len(bad)} leaves: {bad[:5]}")
+    return {"arch": cfg.name, "leaves": len(plain), "params": sum(
+        t[0].numel() for t in stacked.values()), "ms": ms,
+        "plain_ms": plain_ms, "collectives": comms, "bitwise": True}
+
+
+def dryrun_check(rec: dict, cfg, shape_name: str) -> dict:
+    """The gates of a dry-run record of ``MESH_ARCH``: status ok; for a
+    step, ``argument_size_bytes`` equal to the bytes of the port's own
+    placements on the record's mesh (``launch.specs.input_specs`` on the
+    axis sizes) and ``0 < flops_per_device < flops_global``; for the
+    consolidation, only all-reduces, of 2 x 4 x the local element count
+    of the averaged parameters."""
+    from repro_torch.configs import get_shape
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.specs import abstract_params, input_specs
+    from repro_torch.launch.specs import param_shardings
+    from repro_torch.models import sharding as shd
+    if rec.get("status") != "ok":
+        raise AssertionError(f"dry run {shape_name}: {rec}")
+    if shape_name == "consolidate":
+        mesh = {"pod": 2, "data": 16, "model": 16}
+        model, params = abstract_params(cfg)
+        specs = param_shardings(model, mesh)
+        local = sum(math.prod(shd.local_shape(tuple(p.shape), specs[n], mesh))
+                    for n, p in params.items())
+        want = {"all-reduce": 2 * 4 * local, "total": 2 * 4 * local}
+        if rec["collective_bytes_per_device"] != want:
+            raise AssertionError(f"consolidate collectives "
+                                 f"{rec['collective_bytes_per_device']}, "
+                                 f"want {want}")
+        return {"collectives": want, "local_elements": local,
+                "trace_s": rec["trace_s"]}
+    mesh = dict(zip(("pod", "data", "model")[-len(rec["mesh"].split("x")):],
+                    map(int, rec["mesh"].split("x"))))
+    args, specs, _ = input_specs(cfg, get_shape(shape_name), mesh)
+    want = argument_bytes(args, specs, mesh)
+    got = rec["memory_analysis"]["argument_size_bytes"]
+    if got != want:
+        raise AssertionError(f"argument bytes {got}, the placements give "
+                             f"{want}")
+    if not 0 < rec["flops_per_device"] < rec["flops_global"]:
+        raise AssertionError(f"flops/device {rec['flops_per_device']} not "
+                             f"in (0, {rec['flops_global']})")
+    return {"argument_size_bytes": got, "flops_per_device":
+            rec["flops_per_device"], "flops_global": rec["flops_global"],
+            "trace_s": rec["trace_s"]}
+
+
+def start_dryrun(argv, out_dir: str):
+    """``python -m repro_torch.launch.dryrun`` started in a process of
+    its own (a fake world cannot live beside this one's group), records
+    into ``out_dir``."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-m",
+                             "repro_torch.launch.dryrun", *argv,
+                             "--out-dir", out_dir], cwd=str(ROOT), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_dryrun(proc, out_dir: str, name: str) -> dict:
+    """Waits for ``start_dryrun``'s process (``DRYRUN_TIMEOUT``) and
+    returns its one record ``name``."""
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"dry run {proc.args} exited {proc.returncode}:"
+                             f" {out[-2000:]}{err[-3000:]}")
+    return json.loads((Path(out_dir) / name).read_text())
+
+
+def phase_mesh(seed: int) -> dict:
+    """(a) ``mesh_consolidate`` of two full-width llama3.2-1b bf16 copies
+    on a one-rank NCCL mesh on the card; (b) the dry run of llama3.2-1b
+    ``train_4k`` on the 16x16 fake mesh (with ``--global-flops``) and its
+    ``--consolidate`` on 2x16x16, each a subprocess on the host, both
+    started before (a) and waited for after it, each record held by
+    ``dryrun_check``.  Runs last, after every other phase."""
+    import tempfile
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfg = get_config(MESH_ARCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [start_dryrun(["--arch", MESH_ARCH, "--shape", "train_4k",
+                               "--global-flops"], tmp),
+                 start_dryrun(["--consolidate", "--arch", MESH_ARCH], tmp)]
+        try:
+            out = {"consolidate_nccl": mesh_consolidate(cfg)}
+            log("[mesh] consolidate " + json.dumps(out["consolidate_nccl"]))
+            rec = finish_dryrun(procs[0], tmp,
+                                f"{MESH_ARCH}__train_4k__pod16x16.json")
+            out["dryrun_train_4k"] = dryrun_check(rec, cfg, "train_4k")
+            rec = finish_dryrun(procs[1], tmp,
+                                f"{MESH_ARCH}__consolidate__pod2x16x16.json")
+            out["dryrun_consolidate"] = dryrun_check(rec, cfg, "consolidate")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    out["seconds"] = time.perf_counter() - t0
+    log("[mesh] dry run " + json.dumps({k: out[k] for k in (
+        "dryrun_train_4k", "dryrun_consolidate")}))
+    log(f"[mesh] phase mesh took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4037,6 +4224,7 @@ def main(argv=None) -> int:
     hadare, hadare_plain = phase_hadare()
     env = phase_env(events_fields)
     obs = phase_obs(rounds_plain, hadare_plain)
+    mesh = phase_mesh(args.seed)
     sched_main = next(r for r in schedule
                       if (r["n"], r["topo"]) == SCHED_MAIN)["cuda_launches"]
 
@@ -4121,7 +4309,7 @@ def main(argv=None) -> int:
                                    "train": train, "train_rwkv": train_rwkv,
                                    "train_families": train_families,
                                    "train_scheduled": train_scheduled,
-                                   "kernels": kernels},
+                                   "mesh": mesh, "kernels": kernels},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

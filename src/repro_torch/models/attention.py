@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope
 
@@ -67,12 +68,82 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Masked softmax attention with GQA grouping.  mask: (Sq,Sk) or
     broadcastable to (B,1,1,Sq,Sk); True = attend; None = attend to
-    every key."""
+    every key.  On DTensors (a mesh) it runs as ``_mesh_attend``."""
+    if shd.is_dtensor(q):
+        return _mesh_attend(q, k, v, mask)
     scores = _grouped_scores(q, k).float()
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return _grouped_out(probs, v)
+
+
+def _mesh_attend(q, k, v, mask):
+    """``attend`` on DTensors, each device on its shard: the batch stays
+    sharded where q's or k's is; the heads shard over ``model`` where the
+    query heads divide it (K/V with them where the KV heads divide it,
+    else the replicated K/V are expanded to the query heads first, a local
+    view); a decode step (one query) keeps the cache's sequence shards and
+    merges the softmax across them with explicit all-reduces (max, then
+    sums).  Any other sharding is gathered first.  Every move is an
+    explicit ``redistribute`` or collective, so the dry run records it."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qp, kp, op, key_dims = [], [], [], []
+    expand = False
+    for i, name in enumerate(mesh.mesh_dim_names):
+        size = mesh.size(i)
+        if Sq == 1 and k.placements[i] == Shard(1):
+            qp.append(Replicate()), kp.append(Shard(1))
+            op.append(Replicate()), key_dims.append(i)
+        elif Shard(0) in (q.placements[i], k.placements[i]):
+            qp.append(Shard(0)), kp.append(Shard(0)), op.append(Shard(0))
+        elif name == "model" and Hq % size == 0:
+            expand = Hkv % size != 0
+            qp.append(Shard(2)), kp.append(Replicate() if expand else Shard(2))
+            op.append(Shard(2))
+        else:
+            qp.append(Replicate()), kp.append(Replicate())
+            op.append(Replicate())
+    q = q.redistribute(mesh, qp)
+    k, v = (t.redistribute(mesh, kp) for t in (k, v))
+    if expand:
+        G = Hq // Hkv
+        k, v = (t.unsqueeze(3).expand(B, t.shape[1], Hkv, G, D)
+                .reshape(B, t.shape[1], Hq, D) for t in (k, v))
+        kp = [Shard(2) if p == Shard(2) else kp[j] for j, p in enumerate(qp)]
+        k, v = (t.redistribute(mesh, kp) for t in (k, v))
+
+    def local(ql, kl, vl):
+        if not key_dims:
+            return attend(ql, kl, vl, mask)
+        m = mask
+        if m is not None:
+            off = shd.shard_offset(mesh, kp, 1, kl.shape[1])
+            m = m[..., off:off + kl.shape[1]]
+        scores = _grouped_scores(ql, kl).float()
+        if m is not None:
+            scores = scores.masked_fill(~m, NEG_INF)
+        group = [(mesh, i) for i in key_dims]
+        mx = scores.amax(dim=-1, keepdim=True)
+        for g in group:
+            mx = funcol.all_reduce(mx, "max", g)
+        e = torch.exp(scores - mx)
+        den = e.sum(dim=-1, keepdim=True)
+        for g in group:
+            den = funcol.all_reduce(den, "sum", g)
+        out = _grouped_out((e / den).to(ql.dtype), vl)
+        for g in group:
+            out = funcol.all_reduce(out, "sum", g)
+        return out
+
+    return shd.local_map(local, out_placements=op,
+                     in_placements=(q.placements, k.placements,
+                                    v.placements),
+                     device_mesh=mesh)(q, k, v)
 
 
 def causal_mask(sq: int, sk: int, window: int = 0,

@@ -17,17 +17,18 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba, moe, rwkv
+from repro_torch.models import sharding as shd
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (Specs, fan_in, gelu_mlp, layernorm,
-                                       rmsnorm, swiglu)
+from repro_torch.models.layers import (Spec, Specs, fan_in, gelu_mlp,
+                                       layernorm, rmsnorm, spec, swiglu)
 
 
 def register_params(module: nn.Module, specs: Specs, device: torch.device,
                     dtype: torch.dtype):
     """Uninitialised, frozen parameters of the given shapes on ``module``."""
-    for name, (shape, _) in specs.items():
+    for name, sp in specs.items():
         module.register_parameter(name, nn.Parameter(
-            torch.empty(shape, dtype=dtype, device=device),
+            torch.empty(sp.shape, dtype=dtype, device=device),
             requires_grad=False))
 
 
@@ -43,37 +44,59 @@ class _Block(nn.Module):
         register_params(self, self.specs(cfg), device, dtype)
 
 
+D = ("d_model",)
+
+
+def _ones(n: int, axes=D) -> Spec:
+    return spec((n,), "ones", axes)
+
+
+def _zeros(shape, axes=D) -> Spec:
+    return spec(shape if isinstance(shape, tuple) else (shape,), "zeros",
+                axes)
+
+
 def _attn_specs(cfg: ModelConfig, pre: str = "") -> Specs:
     """``repro.models.attention.init_attn``: the projections, and with
     ``cfg.qkv_bias`` the biases ``bq`` (H, Dh), ``bk`` and ``bv`` (Hkv, Dh),
     which start at zero; every name prefixed with ``pre`` ("x" for the
     cross attention)."""
     d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    specs = {"wq": fan_in(d, H, Dh), "wk": fan_in(d, Hkv, Dh),
-             "wv": fan_in(d, Hkv, Dh), "wo": fan_in(H, Dh, d)}
+    specs = {"wq": fan_in((d, H, Dh), ("d_model", "heads", None)),
+             "wk": fan_in((d, Hkv, Dh), ("d_model", "kv_heads", None)),
+             "wv": fan_in((d, Hkv, Dh), ("d_model", "kv_heads", None)),
+             "wo": fan_in((H, Dh, d), ("heads", None, "d_model"))}
     if cfg.qkv_bias:
-        specs.update(bq=((H, Dh), "zeros"), bk=((Hkv, Dh), "zeros"),
-                     bv=((Hkv, Dh), "zeros"))
-    return {pre + name: spec for name, spec in specs.items()}
+        specs.update(bq=_zeros((H, Dh), ("heads", None)),
+                     bk=_zeros((Hkv, Dh), ("kv_heads", None)),
+                     bv=_zeros((Hkv, Dh), ("kv_heads", None)))
+    return {pre + name: sp for name, sp in specs.items()}
 
 
 def _gelu_mlp_specs(cfg: ModelConfig) -> Specs:
     """``w_in`` (d, f), ``b_in`` (f,), ``w_out`` (f, d), ``b_out`` (d,):
     the biases start at zero."""
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_in": fan_in(d, f), "b_in": ((f,), "zeros"),
-            "w_out": fan_in(f, d), "b_out": ((d,), "zeros")}
+    return {"w_in": fan_in((d, f), ("d_model", "d_ff")),
+            "b_in": _zeros(f, ("d_ff",)),
+            "w_out": fan_in((f, d), ("d_ff", "d_model")),
+            "b_out": _zeros(d)}
+
+
+def _swiglu_specs(cfg: ModelConfig) -> Specs:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_gate": fan_in((d, f), ("d_model", "d_ff")),
+            "w_up": fan_in((d, f), ("d_model", "d_ff")),
+            "w_down": fan_in((f, d), ("d_ff", "d_model"))}
 
 
 class DenseBlock(_Block):
     @staticmethod
     def specs(cfg: ModelConfig) -> Specs:
         """``repro.models.blocks.init_blocks`` and ``attention.init_attn``."""
-        d, f = cfg.d_model, cfg.d_ff
-        return {"ln1": ((d,), "ones"), "ln2": ((d,), "ones"),
-                **_attn_specs(cfg),
-                "w_gate": fan_in(d, f), "w_up": fan_in(d, f),
-                "w_down": fan_in(f, d)}
+        d = cfg.d_model
+        return {"ln1": _ones(d), "ln2": _ones(d), **_attn_specs(cfg),
+                **_swiglu_specs(cfg)}
 
 
 class MoEBlock(_Block):
@@ -83,7 +106,7 @@ class MoEBlock(_Block):
         attention of ``DenseBlock`` and ``moe.init_moe``'s experts in place
         of its MLP."""
         d = cfg.d_model
-        return {"ln1": ((d,), "ones"), "ln2": ((d,), "ones"),
+        return {"ln1": _ones(d), "ln2": _ones(d),
                 **_attn_specs(cfg), **moe.init_moe(cfg)}
 
 
@@ -96,15 +119,19 @@ class RWKVBlock(_Block):
         ``mu_c`` start at zero."""
         d, f, H, Dh, R = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim,
                           rwkv.LORA_R)
-        return {"ln1": ((d,), "ones"), "ln2": ((d,), "ones"),
-                "mu": ((5, d), "zeros"), "w0": ((d,), "zeros"),
-                "wa": fan_in(d, R), "wb": fan_in(R, d),
-                "u": ((H, Dh), "zeros"),
-                "wr": fan_in(d, d), "wk": fan_in(d, d), "wv": fan_in(d, d),
-                "wg": fan_in(d, d), "wo": fan_in(d, d),
-                "ln_x": ((d,), "ones"), "mu_c": ((2, d), "zeros"),
-                "wk_c": fan_in(d, f), "wv_c": fan_in(f, d),
-                "wr_c": fan_in(d, d)}
+        sq = ("d_model", "heads_flat")
+        return {"ln1": _ones(d), "ln2": _ones(d),
+                "mu": _zeros((5, d), (None, "d_model")), "w0": _zeros(d),
+                "wa": fan_in((d, R), ("d_model", None)),
+                "wb": fan_in((R, d), (None, "d_model")),
+                "u": _zeros((H, Dh), ("heads", None)),
+                "wr": fan_in((d, d), sq), "wk": fan_in((d, d), sq),
+                "wv": fan_in((d, d), sq), "wg": fan_in((d, d), sq),
+                "wo": fan_in((d, d), sq),
+                "ln_x": _ones(d), "mu_c": _zeros((2, d), (None, "d_model")),
+                "wk_c": fan_in((d, f), ("d_model", "d_ff")),
+                "wv_c": fan_in((f, d), ("d_ff", "d_model")),
+                "wr_c": fan_in((d, d), sq)}
 
 
 class HybridBlock(_Block):
@@ -114,13 +141,10 @@ class HybridBlock(_Block):
         (blocks.py:53-61): the attention of ``DenseBlock``, the norms
         ``ln_pa``/``ln_pm`` of its two branches, ``mamba.init_mamba``'s
         parameters and the shared SwiGLU."""
-        d, f = cfg.d_model, cfg.d_ff
-        return {"ln1": ((d,), "ones"), "ln2": ((d,), "ones"),
-                **_attn_specs(cfg),
-                "ln_pa": ((d,), "ones"), "ln_pm": ((d,), "ones"),
-                **mamba.init_mamba(cfg),
-                "w_gate": fan_in(d, f), "w_up": fan_in(d, f),
-                "w_down": fan_in(f, d)}
+        d = cfg.d_model
+        return {"ln1": _ones(d), "ln2": _ones(d), **_attn_specs(cfg),
+                "ln_pa": _ones(d), "ln_pm": _ones(d),
+                **mamba.init_mamba(cfg), **_swiglu_specs(cfg)}
 
 
 class EncDecBlock(_Block):
@@ -131,11 +155,10 @@ class EncDecBlock(_Block):
         biases ``lnb1``/``lnb2``/``lnb_x``, the self attention, the cross
         attention (``xwq`` ...) and the GELU MLP."""
         d = cfg.d_model
-        return {"ln1": ((d,), "ones"), "ln2": ((d,), "ones"),
-                **_attn_specs(cfg),
-                "ln_x": ((d,), "ones"), "lnb1": ((d,), "zeros"),
-                "lnb2": ((d,), "zeros"), "lnb_x": ((d,), "zeros"),
-                **_attn_specs(cfg, "x"), **_gelu_mlp_specs(cfg)}
+        return {"ln1": _ones(d), "ln2": _ones(d), **_attn_specs(cfg),
+                "ln_x": _ones(d), "lnb1": _zeros(d), "lnb2": _zeros(d),
+                "lnb_x": _zeros(d), **_attn_specs(cfg, "x"),
+                **_gelu_mlp_specs(cfg)}
 
 
 class EncoderBlock(_Block):
@@ -145,9 +168,9 @@ class EncoderBlock(_Block):
         bidirectional self attention and a GELU MLP, each after a
         LayerNorm."""
         d = cfg.d_model
-        return {"ln1": ((d,), "ones"), "ln2": ((d,), "ones"),
-                "lnb1": ((d,), "zeros"), "lnb2": ((d,), "zeros"),
-                **_attn_specs(cfg), **_gelu_mlp_specs(cfg)}
+        return {"ln1": _ones(d), "ln2": _ones(d), "lnb1": _zeros(d),
+                "lnb2": _zeros(d), **_attn_specs(cfg),
+                **_gelu_mlp_specs(cfg)}
 
 
 BLOCKS = {"dense": DenseBlock, "vlm": DenseBlock, "moe": MoEBlock,
@@ -162,28 +185,55 @@ def norm_fn(cfg: ModelConfig):
     return ops.rmsnorm if cfg.attn_impl == "pallas" else rmsnorm
 
 
+def _res(x, y):
+    """The residual add x + y.  Under a mesh (DTensors) its partial sums
+    are reduced, d_model is gathered where it was sharded, and its
+    gradient and the sublayer output's are held to their forward
+    placements: the residual stream stays batch-sharded (the sequence
+    sharded only under ``cfg.seq_shard_axis``), as GSPMD holds the
+    cotangent of a sharded value; on plain tensors just x + y."""
+    if not shd.is_dtensor(y):
+        return x + y
+    return shd.pin_grad(shd.gather_dim(
+        shd.reduce_partial(x + shd.pin_grad(y)), -1))
+
+
+def _seq_gathered(norm):
+    """``norm``, whose output under a mesh has its sequence dim whole on
+    every device (an all-gather where the residual stream is
+    sequence-sharded, ``cfg.seq_shard_axis``: the Megatron schedule that
+    GSPMD derives) and its gradient held to its placements; on plain
+    tensors ``norm`` itself."""
+    def f(x, scale, eps):
+        y = norm(x, scale, eps)
+        if not shd.is_dtensor(y):
+            return y
+        return shd.pin_grad(shd.gather_dim(y, 1))
+    return f
+
+
 def block_fwd(cfg: ModelConfig, window: int):
     """Returns f(block, x, positions, extra=None) -> (x, aux); ``extra``
     is the encdec layer's cross K/V ``(xk, xv)``."""
     eps = cfg.norm_eps
-    norm = norm_fn(cfg)
+    norm = _seq_gathered(norm_fn(cfg))
 
     def no_aux(x):
         return torch.zeros((), dtype=torch.float32, device=x.device)
 
     def dense(p: DenseBlock, x, positions, extra=None):
         h = norm(x, p.ln1, eps)
-        x = x + attn.self_attention(p, h, cfg, positions, window)
+        x = _res(x, attn.self_attention(p, h, cfg, positions, window))
         h = norm(x, p.ln2, eps)
-        x = x + swiglu(h, p.w_gate, p.w_up, p.w_down)
+        x = _res(x, swiglu(h, p.w_gate, p.w_up, p.w_down))
         return x, no_aux(x)
 
     def moe_blk(p: MoEBlock, x, positions, extra=None):
         h = norm(x, p.ln1, eps)
-        x = x + attn.self_attention(p, h, cfg, positions, window)
+        x = _res(x, attn.self_attention(p, h, cfg, positions, window))
         h = norm(x, p.ln2, eps)
         y, aux = moe.moe_ffn(p, h, cfg)
-        return x + y, aux
+        return _res(x, y), aux
 
     def ssm(p: RWKVBlock, x, positions, extra=None):
         B, _, d = x.shape
@@ -192,34 +242,34 @@ def block_fwd(cfg: ModelConfig, window: int):
                              dtype=torch.float32, device=x.device)
         h = norm(x, p.ln1, eps)
         y, _, _ = rwkv.time_mix(p, h, cfg, zshift, zstate, cfg.attn_impl)
-        x = x + y
+        x = _res(x, y)
         h = norm(x, p.ln2, eps)
         y, _ = rwkv.channel_mix(p, h, zshift)
-        return x + y, no_aux(x)
+        return _res(x, y), no_aux(x)
 
     def hybrid(p: HybridBlock, x, positions, extra=None):
         B = x.shape[0]
         di = mamba.d_inner(cfg)
         h = norm(x, p.ln1, eps)
-        a = attn.self_attention(p, h, cfg, positions, window)
+        a = shd.pin_grad(attn.self_attention(p, h, cfg, positions, window))
         zconv = torch.zeros((B, mamba.CONV_K - 1, di), dtype=x.dtype,
                             device=x.device)
         zssm = torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32,
                            device=x.device)
-        m, _, _ = mamba.mamba_mix(p, h, cfg, zconv, zssm)
-        x = x + 0.5 * (norm(a, p.ln_pa, eps) + norm(m, p.ln_pm, eps))
+        m = shd.pin_grad(mamba.mamba_mix(p, h, cfg, zconv, zssm)[0])
+        x = _res(x, 0.5 * (norm(a, p.ln_pa, eps) + norm(m, p.ln_pm, eps)))
         h = norm(x, p.ln2, eps)
-        x = x + swiglu(h, p.w_gate, p.w_up, p.w_down)
+        x = _res(x, swiglu(h, p.w_gate, p.w_up, p.w_down))
         return x, no_aux(x)
 
     def encdec(p: EncDecBlock, x, positions, extra=None):
         xk, xv = extra
         h = layernorm(x, p.ln1, p.lnb1, eps)
-        x = x + attn.self_attention(p, h, cfg, positions, 0)
+        x = _res(x, attn.self_attention(p, h, cfg, positions, 0))
         h = layernorm(x, p.ln_x, p.lnb_x, eps)
-        x = x + attn.cross_attention(p, h, xk, xv, cfg)
+        x = _res(x, attn.cross_attention(p, h, xk, xv, cfg))
         h = layernorm(x, p.ln2, p.lnb2, eps)
-        x = x + gelu_mlp(h, p.w_in, p.b_in, p.w_out, p.b_out)
+        x = _res(x, gelu_mlp(h, p.w_in, p.b_in, p.w_out, p.b_out))
         return x, no_aux(x)
 
     return {"dense": dense, "vlm": dense, "moe": moe_blk, "ssm": ssm,
@@ -233,10 +283,10 @@ def encoder_block_fwd(cfg: ModelConfig):
 
     def enc(p: EncoderBlock, x, positions):
         h = layernorm(x, p.ln1, p.lnb1, eps)
-        x = x + attn.self_attention(p, h, cfg, positions, 0,
-                                    bidirectional=True)
+        x = _res(x, attn.self_attention(p, h, cfg, positions, 0,
+                                        bidirectional=True))
         h = layernorm(x, p.ln2, p.lnb2, eps)
-        return x + gelu_mlp(h, p.w_in, p.b_in, p.w_out, p.b_out)
+        return _res(x, gelu_mlp(h, p.w_in, p.b_in, p.w_out, p.b_out))
 
     return enc
 

@@ -28,35 +28,50 @@ def kv_cache_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.kv_cache_dtype)
 
 
+def _entries(cfg: ModelConfig, batch: int, seq: int):
+    """(name, shape, logical axes, dtype) of each entry, in the JAX
+    package's order and with its axes (``repro.models.cache.init_cache``)."""
+    dt = torch_dtype(cfg.dtype)
+    kvdt = kv_cache_dtype(cfg)
+    L, B = cfg.n_layers, batch
+    out = []
+    if cfg.family != "ssm":
+        kv_shape = (L, B, seq, cfg.n_kv_heads, cfg.head_dim)
+        kv_axes = ("layer", "batch", "seq", "kv_heads", None)
+        out += [("k", kv_shape, kv_axes, kvdt), ("v", kv_shape, kv_axes, kvdt)]
+    if cfg.family == "encdec":
+        xshape = (L, B, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+        xaxes = ("layer", "batch", None, "kv_heads", None)
+        out += [("xk", xshape, xaxes, kvdt), ("xv", xshape, xaxes, kvdt)]
+    if cfg.family == "ssm":
+        out += [("wkv", (L, B, cfg.n_heads, cfg.head_dim, cfg.head_dim),
+                 ("layer", "batch", "heads", None, None), torch.float32),
+                ("shift_t", (L, B, 1, cfg.d_model),
+                 ("layer", "batch", None, "d_model"), dt),
+                ("shift_c", (L, B, 1, cfg.d_model),
+                 ("layer", "batch", None, "d_model"), dt)]
+    if cfg.family == "hybrid":
+        di = mamba.d_inner(cfg)
+        out += [("conv", (L, B, mamba.CONV_K - 1, di),
+                 ("layer", "batch", None, "d_ff"), dt),
+                ("ssm", (L, B, di, cfg.ssm_state),
+                 ("layer", "batch", "d_ff", None), torch.float32)]
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
                device: DeviceLike = None) -> dict:
     """The zeroed decode state of ``cfg``'s family (the module docstring),
     with the JAX package's names in its order, on ``device`` (default:
-    the card)."""
+    the card).  ``device="meta"`` gives its shapes with no memory (the JAX
+    package's ``abstract=True``)."""
     dev = resolve_device(device)
-    dt = torch_dtype(cfg.dtype)
-    kvdt = kv_cache_dtype(cfg)
-    L, B = cfg.n_layers, batch
-    cache = {}
+    return {name: torch.zeros(shape, dtype=dtype, device=dev)
+            for name, shape, _, dtype in _entries(cfg, batch, seq)}
 
-    def make(name, shape, dtype=dt):
-        cache[name] = torch.zeros(shape, dtype=dtype, device=dev)
 
-    if cfg.family != "ssm":
-        kv_shape = (L, B, seq, cfg.n_kv_heads, cfg.head_dim)
-        make("k", kv_shape, kvdt)
-        make("v", kv_shape, kvdt)
-    if cfg.family == "encdec":
-        xshape = (L, B, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
-        make("xk", xshape, kvdt)
-        make("xv", xshape, kvdt)
-    if cfg.family == "ssm":
-        make("wkv", (L, B, cfg.n_heads, cfg.head_dim, cfg.head_dim),
-             torch.float32)
-        make("shift_t", (L, B, 1, cfg.d_model))
-        make("shift_c", (L, B, 1, cfg.d_model))
-    if cfg.family == "hybrid":
-        di = mamba.d_inner(cfg)
-        make("conv", (L, B, mamba.CONV_K - 1, di))
-        make("ssm", (L, B, di, cfg.ssm_state), torch.float32)
-    return cache
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of each cache entry, the JAX package's
+    (``init_cache``'s second tree), leading ``"layer"`` axis included, as
+    the port's cache keeps it."""
+    return {name: axes for name, _, axes, _ in _entries(cfg, 1, 1)}

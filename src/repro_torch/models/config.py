@@ -12,9 +12,12 @@ hash.
 family) on a CUDA tensor, and its plain PyTorch version on a CPU tensor;
 ``"xla"`` means the plain path (the einsum attention, the sequential
 scan).
-The mesh fields (``seq_shard_axis``, ``moe_expert_axis``,
-``batch_shard_axes``) and ``remat`` are carried for that reason and are
-not read by the inference path.
+The mesh fields are read only when the model's tensors are DTensors on
+a mesh (the dry run, ``repro_torch.launch.dryrun``): ``seq_shard_axis``
+pins the residual stream's sequence dim between blocks
+(``models.model``), ``moe_expert_axis`` and ``batch_shard_axes`` pin the
+grouped MoE buffer (``models.moe``).  On plain tensors they change
+nothing.  ``remat`` checkpoints each block while the model trains.
 """
 from __future__ import annotations
 
@@ -79,6 +82,50 @@ class ModelConfig:
             raise ValueError(f"unknown family {self.family!r}")
         if self.head_dim == 0 and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    # ---- derived sizes ------------------------------------------------
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used by roofline + scheduler PMI)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        per_layer = 0
+        if self.family == "ssm":
+            # rwkv6: time-mix (r,k,v,g,o + decay lora) + channel-mix
+            per_layer = 4 * d * d + 2 * d * 64 + d * f + f * d + d * d
+        else:
+            attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            if self.family == "moe":
+                ffn = self.n_experts * 3 * d * f
+            else:
+                ffn = 3 * d * f
+            per_layer = attn + ffn
+            if self.family == "hybrid":
+                # extra mamba path ~ 2*d*2d (in/out proj) + small scan params
+                per_layer += 4 * d * d + 2 * d * self.ssm_state
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        enc = 0
+        if self.enc_layers:
+            enc = self.enc_layers * (4 * d * d + 2 * d * f)
+            if self.family == "encdec":  # decoder cross-attn
+                per_layer += 4 * d * d
+        return self.n_layers * per_layer + emb + enc
+
+    def active_param_count(self) -> int:
+        """Activated parameters per token (MoE uses top_k of n_experts)."""
+        if self.family != "moe" or not self.n_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense_like = self.param_count() - self.n_layers * (
+            self.n_experts * 3 * d * f
+        )
+        return dense_like + self.n_layers * self.top_k * 3 * d * f
 
     def reduced(self, n_layers: int = 2, max_d_model: int = 512,
                 max_experts: int = 4) -> "ModelConfig":

@@ -8,7 +8,7 @@ the matrix products and the MLP biases run in the working type.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -20,13 +20,32 @@ from repro_torch.kernels.ref import rmsnorm_ref as rmsnorm  # noqa: F401
 # How ``model.init_params`` fills a parameter: "ones", "zeros", or the std
 # of a normal draw.
 Init = Union[str, float]
-Specs = Dict[str, Tuple[Tuple[int, ...], Init]]
+Axes = Tuple[Optional[str], ...]
 
 
-def fan_in(*shape: int) -> Tuple[Tuple[int, ...], Init]:
+class Spec(NamedTuple):
+    """One parameter: its per-layer shape, how it is filled, and its
+    logical axes, one name (or None) per dim, as the JAX ``ParamFactory``
+    names them without the stacked ``"layer"`` axis
+    (``repro_torch.models.sharding`` maps them to a mesh)."""
+    shape: Tuple[int, ...]
+    init: Init
+    axes: Axes
+
+
+Specs = Dict[str, Spec]
+
+
+def fan_in(shape: Tuple[int, ...], axes: Axes) -> Spec:
     """A normal draw of std 1/sqrt(shape[-2]): the JAX ``ParamFactory``
     default, whose stacked shapes have the same second-to-last dim."""
-    return shape, 1.0 / math.sqrt(max(1, shape[-2]))
+    return spec(shape, 1.0 / math.sqrt(max(1, shape[-2])), axes)
+
+
+def spec(shape: Tuple[int, ...], init: Init, axes: Axes) -> Spec:
+    shape = tuple(int(s) for s in shape)
+    assert len(shape) == len(axes), (shape, axes)
+    return Spec(shape, init, tuple(axes))
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

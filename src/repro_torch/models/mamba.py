@@ -18,8 +18,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding as shd
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Specs, fan_in
+from repro_torch.models.layers import Specs, fan_in, spec
 
 CONV_K = 4  # depthwise causal conv kernel size
 
@@ -34,10 +35,13 @@ def init_mamba(cfg: ModelConfig) -> Specs:
     ``m_out`` (Di, d) drawn with std 1/sqrt(shape[-2]); ``m_alog`` and
     ``m_dtb`` (Di,) zeros, ``m_d`` (Di,) ones."""
     d, n, di = cfg.d_model, cfg.ssm_state, d_inner(cfg)
-    return {"m_in": fan_in(d, 2 * di), "m_conv": fan_in(CONV_K, di),
-            "m_xbc": fan_in(di, 2 * n + 1),
-            "m_alog": ((di,), "zeros"), "m_dtb": ((di,), "zeros"),
-            "m_d": ((di,), "ones"), "m_out": fan_in(di, d)}
+    f = ("d_ff",)
+    return {"m_in": fan_in((d, 2 * di), ("d_model", "d_ff")),
+            "m_conv": fan_in((CONV_K, di), (None, "d_ff")),
+            "m_xbc": fan_in((di, 2 * n + 1), ("d_ff", None)),
+            "m_alog": spec((di,), "zeros", f), "m_dtb": spec((di,), "zeros", f),
+            "m_d": spec((di,), "ones", f),
+            "m_out": fan_in((di, d), ("d_ff", "d_model"))}
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, conv_state: torch.Tensor):
@@ -56,14 +60,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, conv_state: torch.Tensor):
 def _ssm_scan(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor):
     """h_t = a_t * h_{t-1} + bx_t over dim 1.  a: (B,S,Di,1) (the decay
     is the same for every state channel); bx: (B,S,Di,N), overwritten
-    with h, unless autograd records the scan (then each step is a new
-    tensor, with the same sums); h0: (B,Di,N).  Returns (h, h[:, -1]).
+    with h, unless autograd records the scan or the tensors are DTensors
+    (then each step is a new tensor, with the same sums); h0: (B,Di,N).  Returns (h, h[:, -1]).
 
     h0 is folded into the first element, then step d (1, 2, 4, ...)
     combines each element t >= d with element t - d by the reference's
     ``combine(l, r) = (a_l a_r, a_r b_l + b_r)``; at S = 1 (decode) no
     step runs."""
-    taped = torch.is_grad_enabled() and (a.requires_grad or bx.requires_grad)
+    taped = (torch.is_grad_enabled() and (a.requires_grad or bx.requires_grad)
+             or shd.is_dtensor(bx))
     if taped:
         bx = torch.cat([bx[:, :1] + a[:, :1] * h0[:, None], bx[:, 1:]], 1)
     else:
@@ -88,7 +93,9 @@ def mamba_mix(p, x: torch.Tensor, cfg: ModelConfig,
     xin, gate = (x @ p.m_in).chunk(2, dim=-1)                 # (B,S,Di) each
     xc, new_conv = _causal_conv(xin, p.m_conv, conv_state)
     xc = F.silu(xc.float())
-    xbc = xc.to(x.dtype) @ p.m_xbc
+    # under a mesh the product is a partial sum over the sharded inner
+    # width; reduce it here, before the slices meet d_ff-sharded biases
+    xbc = shd.reduce_partial(xc.to(x.dtype) @ p.m_xbc)
     B_, C_, dt = xbc[..., :n], xbc[..., n:2 * n], xbc[..., 2 * n].float()
     # dt: scalar per token, broadcast per channel with a learned bias
     dt = F.softplus(dt[..., None] + p.m_dtb.float())          # (B,S,Di)

@@ -13,18 +13,24 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import sharding as shd
 from repro_torch.models.cache import init_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Transformer, decode_step
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable:
+def make_serve_step(cfg: ModelConfig, seq_sharded: bool = False) -> Callable:
     """(model, cache, token (B,), pos) -> (next_token (B,), cache,
-    logits); greedy; the cache is written in place."""
+    logits); greedy; the cache is written in place.  ``seq_sharded``: the
+    cache's sequence dim is sharded (the dry run's decode), so the new
+    token's K/V are written by a select over the whole sequence, as in the
+    JAX package (``attention.update_cache``); the values are the same."""
 
     def step(model, cache, token, pos):
-        logits, cache = decode_step(model, cfg, cache, token, pos)
-        nxt = torch.argmax(logits, dim=-1)
+        logits, cache = decode_step(model, cfg, cache, token, pos,
+                                    seq_sharded=seq_sharded)
+        # under a mesh each device takes the argmax of the whole vocab
+        nxt = torch.argmax(shd.gather_dim(logits, -1), dim=-1)
         return nxt, cache, logits
 
     return step

@@ -9,7 +9,9 @@ parameter's dtype; weight decay applies to every leaf.  Every function is
 pure: it returns new tensors and leaves its arguments as they were.
 (``torch.optim.AdamW`` is no substitute: it keeps bf16 moments for bf16
 parameters and orders the decay differently.)  ``abstract_opt_state``
-waits for the port's mesh slice.
+gives the state's shapes on the meta device, for the dry run
+(``repro_torch.launch.specs``), where the moments take the parameters'
+placements and ``step`` is replicated.
 """
 from __future__ import annotations
 
@@ -82,6 +84,18 @@ def init_opt_state(params, oc: OptConfig) -> OptState:
     if oc.kind == "sgdm":
         return OptState(step, mu, mu)
     return OptState(step, mu, tree_map(zeros, params))
+
+
+def abstract_opt_state(abstract_params, oc: OptConfig) -> OptState:
+    """The state of ``init_opt_state`` as shapes only (meta tensors): a
+    0-dim int32 ``step``, float32 ``mu`` and ``nu`` shaped like each
+    parameter (``repro.train.optimizer.abstract_opt_state``)."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    mu = tree_map(f32, abstract_params)
+    return OptState(torch.empty((), dtype=torch.int32, device="meta"), mu,
+                    tree_map(f32, abstract_params))
 
 
 def apply_updates(params, grads, state: OptState, oc: OptConfig):

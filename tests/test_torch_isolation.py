@@ -1,6 +1,6 @@
 """The port stands alone: no ``jax`` and no ``repro`` import, anywhere in
-``src/repro_torch``, ``chip_smoke.py``, ``chip_mutants.py`` or
-``chip_compare.py``, and it serves all ten configs (every family),
+``src/repro_torch``, ``chip_smoke.py``, ``chip_mutants.py``,
+``chip_compare.py`` or ``chip_paths.py``, and it serves all ten configs (every family),
 prefills vlm and encdec, schedules and simulates under faults, HadarE, the
 env, the sanitized policy comparison and the observer included, with both
 blocked; ``python -m repro_torch.obs`` runs with both blocked too, and so
@@ -30,7 +30,7 @@ def _imported_roots(path: Path):
 def test_no_jax_or_repro_imports():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "chip_mutants.py",
-              REPO / "chip_compare.py"]
+              REPO / "chip_compare.py", REPO / "chip_paths.py"]
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"src/repro_torch/models/rwkv.py",
             "src/repro_torch/models/mamba.py",
